@@ -1,0 +1,86 @@
+"""Rules of the port: `wheeledlab_torch` and `chip_smoke.py` never import JAX
+or the JAX package, and the entry points run on CUDA unless the caller asks
+for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "wheeledlab_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wheeledlab_tpu")
+
+
+def port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def port_modules():
+    for path in port_sources():
+        rel = os.path.relpath(path, ROOT)
+        if rel.startswith("wheeledlab_torch"):
+            mod = rel[:-3].replace(os.sep, ".")
+            yield mod.removesuffix(".__init__")
+
+
+def test_no_jax_import_in_port_sources():
+    bad = []
+    for path in port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    bad.append(f"{os.path.relpath(path, ROOT)}: {name}")
+    assert not bad, bad
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    mods = sorted(port_modules())
+    assert len(mods) > 20
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "import chip_smoke\n"
+            + f"bad = [m for m in sys.modules if m.split('.')[0] in "
+              f"{FORBIDDEN!r}]\n"
+            + "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_default_device_is_cuda_without_fallback():
+    """Without a CUDA device, the entry points raise instead of running on
+    the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.rl.runner import train
+    from wheeledlab_torch.tasks import make_env
+    from wheeledlab_torch.utils.config import RUN_CONFIGS, override
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_env("MushrDriftRL-v0", num_envs=8)
+    cfg = override(RUN_CONFIGS.get("RSS_DRIFT_CONFIG"), "num_envs", 8)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg)
+
+
+if __name__ == "__main__":
+    sys.exit(pytest.main([__file__, "-x", "-q"]))

@@ -1,0 +1,344 @@
+"""PPO learner — the port of `wheeledlab_tpu/rl/ppo.py` (rsl_rl semantics,
+reference modified_rsl_rl_runner.py:67-118 + RslRlPpoAlgorithmCfg,
+drifting/.../rsl_rl_ppo_cfg.py:19-31).
+
+One `train_iteration`: a rollout of `num_steps_per_env` env steps with the
+`reward += gamma * V * time_out` bootstrap and online info folding, GAE,
+advantage normalization, then `num_learning_epochs` x `num_mini_batches`
+clipped-surrogate / clipped-value updates over one permutation shared across
+epochs, each with the adaptive-KL learning rate, a global grad-norm clip and
+Adam. Nothing in an iteration reads a value back to the host: the learning
+rate is a device tensor that the fused Adam step reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from ..envs.env import EnvState, WheeledEnv
+from ..utils.config import configclass
+from .networks import (
+    ActorCritic, gaussian_entropy, gaussian_kl, gaussian_log_prob,
+)
+
+
+@configclass
+class PPOCfg:
+    """Parity: RslRlPpoAlgorithmCfg + runner fields (rsl_rl_ppo_cfg.py:5-32)."""
+
+    num_steps_per_env: int = 128
+    num_learning_epochs: int = 5
+    num_mini_batches: int = 4
+    clip_param: float = 0.2
+    gamma: float = 0.99
+    lam: float = 0.95
+    value_loss_coef: float = 1.0
+    use_clipped_value_loss: bool = True
+    entropy_coef: float = 0.005
+    learning_rate: float = 1.0e-3
+    schedule: str = "adaptive"       # "adaptive" | "fixed"
+    desired_kl: float = 0.01
+    max_grad_norm: float = 1.0
+    min_lr: float = 1.0e-5
+    max_lr: float = 1.0e-2
+    policy_class: str = "ActorCritic"   # "ActorCriticRecurrent": not ported
+    actor_hidden: Tuple[int, ...] = (64, 64)
+    critic_hidden: Tuple[int, ...] = (64, 64)
+    activation: str = "elu"
+    init_noise_std: float = 1.0
+    rnn_hidden_size: int = 256       # recurrent policy only (not ported)
+    rnn_num_layers: int = 1
+    fuse_input_layer: bool = False   # TPU matmul-tiling knob; no effect here
+    compute_dtype: str = "float32"   # "bfloat16" is not ported
+
+
+def init_info_acc(info: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Zeroed scalar accumulators for an env's per-step info channels."""
+    z = torch.zeros((), device=info["episode_return"].device)
+    acc = {"episode_return": z, "episode_length": z}
+    acc.update({k: z for k in info
+                if k.startswith(("rew/", "metrics/", "done/"))})
+    return acc
+
+
+def accumulate_info(acc: Dict[str, torch.Tensor],
+                    info: Dict[str, torch.Tensor],
+                    done: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One rollout step of metric folding: rew/*, metrics/* accumulate
+    per-step batch means (later / num_steps); done/* accumulate counts
+    (later / n_done); episode stats accumulate done-masked sums."""
+    dm = done.to(torch.float32)
+    new = {
+        "episode_return": acc["episode_return"]
+        + (info["episode_return"] * dm).sum(),
+        "episode_length": acc["episode_length"]
+        + (info["episode_length"] * dm).sum(),
+    }
+    for k in acc:
+        if k.startswith(("rew/", "metrics/")):
+            new[k] = acc[k] + info[k].mean()
+        elif k.startswith("done/"):
+            new[k] = acc[k] + info[k].sum()
+    return new
+
+
+def finalize_info_acc(acc: Dict[str, torch.Tensor], num_steps: int,
+                      n_done: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Accumulators -> iteration metrics: rollout means of rew/* and
+    metrics/*, done/* as fractions of finished episodes, and
+    episode/return, episode/length as means over finished episodes."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in acc.items():
+        if name.startswith(("rew/", "metrics/")):
+            out[name] = v / num_steps
+        elif name.startswith("done/"):
+            out[name] = v / n_done
+    out["episode/return"] = acc["episode_return"] / n_done
+    out["episode/length"] = acc["episode_length"] / n_done
+    return out
+
+
+@dataclasses.dataclass
+class TrainState:
+    env_state: EnvState
+    obs: torch.Tensor
+    iteration: int
+
+
+class PPO:
+    """The learner: the policy, its optimizer and the learner's generator
+    (action noise and the epoch permutation)."""
+
+    def __init__(self, env: WheeledEnv, cfg: PPOCfg, seed: int = 0):
+        self.env, self.cfg = env, cfg
+        dev = env.device
+        self.model = ActorCritic(
+            env.obs_dim, env.action_dim, cfg.actor_hidden,
+            cfg.critic_hidden, cfg.activation, cfg.init_noise_std,
+            generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+        # fused Adam takes the learning rate as a device tensor, so the
+        # adaptive schedule never syncs with the host
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(),
+            lr=torch.tensor(cfg.learning_rate, device=dev), fused=True)
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(seed + 2)
+
+    @property
+    def lr(self) -> torch.Tensor:
+        return self.optimizer.param_groups[0]["lr"]
+
+    def init_state(self) -> TrainState:
+        env_state, obs = self.env.reset()
+        return TrainState(env_state=env_state, obs=obs, iteration=0)
+
+    # ------------------------------------------------------------- rollout
+
+    @torch.no_grad()
+    def rollout(self, state: TrainState):
+        """Returns (env_state, obs, traj dict of time-major [T, B, ...]
+        tensors, info accumulators)."""
+        cfg, env = self.cfg, self.env
+        t_len, n = cfg.num_steps_per_env, env.num_envs
+        dev = env.device
+        traj = {
+            "obs": torch.empty((t_len, n, env.obs_dim), device=dev),
+            "action": torch.empty((t_len, n, env.action_dim), device=dev),
+            "log_prob": torch.empty((t_len, n), device=dev),
+            "value": torch.empty((t_len, n), device=dev),
+            "reward": torch.empty((t_len, n), device=dev),
+            "done": torch.empty((t_len, n), device=dev),
+            "mean": torch.empty((t_len, n, env.action_dim), device=dev),
+            "std": torch.empty((t_len, n, env.action_dim), device=dev),
+        }
+        env_state, obs, acc = state.env_state, state.obs, None
+        for t in range(t_len):
+            mean, std, value = self.model(obs)
+            action = mean + std * torch.randn(
+                mean.shape, generator=self.generator, device=dev)
+            log_prob = gaussian_log_prob(mean, std, action)
+            env_state, out = env.step(env_state, action)
+            # timeout bootstrap (rsl_rl process_env_step:
+            # rewards += gamma * value * time_out)
+            reward = out.reward + cfg.gamma * value * out.time_out
+            for k, v in (("obs", obs), ("action", action),
+                         ("log_prob", log_prob), ("value", value),
+                         ("reward", reward), ("done", out.done),
+                         ("mean", mean), ("std", std)):
+                traj[k][t] = v
+            if acc is None:
+                acc = init_info_acc(out.info)
+            acc = accumulate_info(acc, out.info, out.done)
+            obs = out.obs
+        return env_state, obs, traj, acc
+
+    # ----------------------------------------------------------------- GAE
+
+    def compute_gae(self, reward, value, done, last_value):
+        """[T, B] rewards/values/dones -> (advantages, returns, normalized
+        advantages). The normalization uses the population std, as
+        `jnp.std` does."""
+        cfg = self.cfg
+        advantages = torch.empty_like(reward)
+        adv_next = torch.zeros_like(last_value)
+        v_next = last_value
+        for t in reversed(range(reward.shape[0])):
+            nonterminal = 1.0 - done[t]
+            delta = reward[t] + cfg.gamma * v_next * nonterminal - value[t]
+            adv_next = (delta
+                        + cfg.gamma * cfg.lam * nonterminal * adv_next)
+            advantages[t] = adv_next
+            v_next = value[t]
+        returns = advantages + value
+        norm_adv = ((advantages - advantages.mean())
+                    / (advantages.std(correction=0) + 1e-8))
+        return advantages, returns, norm_adv
+
+    # -------------------------------------------------------------- update
+
+    def loss(self, batch):
+        """(total, (surrogate, value, entropy, kl)) of one minibatch."""
+        cfg = self.cfg
+        obs, action, old_log_prob, old_value, ret, adv, old_mean, old_std = \
+            batch
+        mean, std, value = self.model(obs)
+        log_prob = gaussian_log_prob(mean, std, action)
+        ratio = torch.exp(log_prob - old_log_prob)
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param,
+                            1.0 + cfg.clip_param) * adv
+        surrogate_loss = -torch.minimum(surr1, surr2).mean()
+
+        if cfg.use_clipped_value_loss:
+            value_clipped = old_value + torch.clamp(
+                value - old_value, -cfg.clip_param, cfg.clip_param)
+            value_loss = torch.maximum(
+                (value - ret) ** 2, (value_clipped - ret) ** 2).mean()
+        else:
+            value_loss = ((value - ret) ** 2).mean()
+
+        entropy = gaussian_entropy(std).mean()
+        kl = gaussian_kl(old_mean, old_std, mean, std).mean()
+        total = (surrogate_loss + cfg.value_loss_coef * value_loss
+                 - cfg.entropy_coef * entropy)
+        return total, (surrogate_loss, value_loss, entropy, kl)
+
+    def minibatch_update(self, batch) -> torch.Tensor:
+        """One gradient step; returns [total, surrogate, value, entropy,
+        kl] (detached)."""
+        cfg = self.cfg
+        total, (surr, vloss, ent, kl) = self.loss(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        kl = kl.detach()
+
+        if cfg.schedule == "adaptive":
+            # rsl_rl adaptive-KL LR, set before this minibatch's Adam step
+            lr = self.lr
+            new = torch.where(kl > cfg.desired_kl * 2.0,
+                              torch.clamp(lr / 1.5, min=cfg.min_lr), lr)
+            new = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
+                              torch.clamp(new * 1.5, max=cfg.max_lr), new)
+            lr.copy_(new)
+
+        # optax.clip_by_global_norm: scale by max / norm once norm >= max
+        grads = [p.grad for p in self.model.parameters()]
+        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        keep = g_norm < cfg.max_grad_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / g_norm * cfg.max_grad_norm))
+        self.optimizer.step()
+        return torch.stack([total, surr, vloss, ent, kl]).detach()
+
+    def update_epochs(self, dataset) -> torch.Tensor:
+        """dataset: tuple of time-major [T, B, ...] tensors (obs, action,
+        log_prob, value, returns, norm_adv, mean, std). One permutation
+        shared across epochs (rsl_rl's mini_batch_generator); the columns
+        are packed into one array so the shuffle is one gather. Returns
+        the mean of the minibatch metrics."""
+        cfg = self.cfg
+        nb = cfg.num_mini_batches
+        t_len, b = dataset[0].shape[:2]
+        n = t_len * b
+        mb = n // nb
+        cols = [x.reshape(n, -1) for x in dataset]
+        widths = [c.shape[1] for c in cols]
+        perm = torch.randperm(n, generator=self.generator,
+                              device=dataset[0].device)
+        shuffled = torch.cat(cols, dim=1)[perm][: mb * nb]
+        batches = []
+        for i in range(nb):
+            block = shuffled[i * mb:(i + 1) * mb]
+            parts = torch.split(block, widths, dim=1)
+            batches.append(tuple(
+                p if x.ndim == 3 else p[:, 0]
+                for p, x in zip(parts, dataset)))
+        metrics = [self.minibatch_update(batch)
+                   for _ in range(cfg.num_learning_epochs)
+                   for batch in batches]
+        return torch.stack(metrics).mean(0)
+
+    # ------------------------------------------------------ full iteration
+
+    def train_iteration(self, state: TrainState
+                        ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        env_state, obs, traj, acc = self.rollout(state)
+        with torch.no_grad():
+            _, _, last_value = self.model(obs)
+            _, returns, norm_adv = self.compute_gae(
+                traj["reward"], traj["value"], traj["done"], last_value)
+        dataset = (traj["obs"], traj["action"], traj["log_prob"],
+                   traj["value"], returns, norm_adv, traj["mean"],
+                   traj["std"])
+        loss_metrics = self.update_epochs(dataset)
+
+        # episode stats: mean over transitions where an episode finished
+        num_dones = traj["done"].sum()
+        n_done = torch.clamp(num_dones, min=1.0)
+        metrics = {
+            "loss/total": loss_metrics[0],
+            "loss/surrogate": loss_metrics[1],
+            "loss/value": loss_metrics[2],
+            "loss/entropy": loss_metrics[3],
+            "loss/kl": loss_metrics[4],
+            "lr": self.lr.detach().clone(),
+            "episode/num_dones": num_dones,
+            "rollout/reward_mean": traj["reward"].mean(),
+            # NaN guard (parity: modified_rsl_rl_runner.py:74-75); the
+            # runner raises when this fires
+            "nan/detected": 1.0 - (torch.isfinite(traj["action"]).all()
+                                   & torch.isfinite(loss_metrics).all()
+                                   ).to(torch.float32),
+        }
+        metrics.update(finalize_info_acc(acc, cfg.num_steps_per_env, n_done))
+        return TrainState(env_state=env_state, obs=obs,
+                          iteration=state.iteration + 1), metrics
+
+    # ---------------------------------------------------------- checkpoint
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, sd: dict):
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.generator.set_state(sd["generator"])
+
+
+def make_learner(env: WheeledEnv, cfg: PPOCfg, seed: int = 0) -> PPO:
+    """Policy-class dispatch (rsl_rl resolves RslRlPpoActorCriticCfg
+    .class_name); the recurrent learner is not ported yet."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError("only compute_dtype='float32' is ported")
+    if cfg.policy_class == "ActorCritic":
+        return PPO(env, cfg, seed)
+    if cfg.policy_class == "ActorCriticRecurrent":
+        raise NotImplementedError(
+            "the recurrent learner (ActorCriticRecurrent) is not ported yet")
+    raise ValueError(f"unknown policy_class {cfg.policy_class!r}")

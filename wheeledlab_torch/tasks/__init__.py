@@ -1,0 +1,58 @@
+"""Task registry — the port of `wheeledlab_tpu/tasks/__init__.py` for the
+drift slice. Task ids keep the reference names minus the "Isaac-" vendor
+prefix; the old ids are accepted as aliases."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from ..utils.config import TASKS, apply_overrides
+from .drift.task import DriftTaskCfg, make_drift_env
+
+
+def _register_all():
+    if "MushrDriftRL-v0" in TASKS:
+        return
+    # Play variants (reference mushr_drift_env_cfg.py:410-430) strip rewards,
+    # curriculum and terminations and so need the generic step, which is not
+    # ported yet; `make_env(play=True)` raises until it is.
+    TASKS.register("MushrDriftRL-v0", {
+        "cfg": DriftTaskCfg(),
+        "play_cfg": DriftTaskCfg(pos_noise=0.0, yaw_noise=0.0,
+                                 terminations_enabled=False,
+                                 rewards_enabled=False),
+        "make": make_drift_env,
+    })
+    TASKS.register("F1TenthDriftRL-v0", {
+        "cfg": DriftTaskCfg(robot="f1tenth", num_envs=256),
+        "play_cfg": DriftTaskCfg(robot="f1tenth", num_envs=256,
+                                 pos_noise=0.0, yaw_noise=0.0,
+                                 terminations_enabled=False,
+                                 rewards_enabled=False),
+        "make": make_drift_env,
+    })
+
+
+def resolve_task(task_name: str) -> Dict[str, Any]:
+    _register_all()
+    return TASKS.get(task_name.removeprefix("Isaac-"))
+
+
+def make_env(task_name: str, num_envs: Optional[int] = None,
+             overrides: Optional[Dict[str, Any]] = None, play: bool = False,
+             device="cuda", seed: int = 0):
+    """Build a task's env on `device` (CUDA unless the caller asks for the
+    CPU); its random draws come from a generator seeded with `seed`."""
+    if play:
+        raise NotImplementedError(
+            "play variants need the generic manager step, which is not "
+            "ported yet")
+    entry = resolve_task(task_name)
+    cfg = entry["cfg"]
+    if num_envs is not None:
+        cfg = cfg.replace(num_envs=num_envs)
+    if overrides:
+        cfg = apply_overrides(cfg, dict(overrides))
+    env = entry["make"](cfg, device=device, seed=seed)
+    env.task_cfg = cfg  # the resolved task-level cfg, for introspection
+    return env

@@ -1,0 +1,208 @@
+"""Drift task — the port of `wheeledlab_tpu/tasks/drift/task.py` (reference
+drifting/mushr_drift_env_cfg.py).
+
+Oval track: two straights at x = ±LINE_RADIUS (|y| <= STRAIGHT) joined by
+semicircles of radius LINE_RADIUS centered at (0, ±STRAIGHT). The reward
+terms, terminations and reset are computed by the fused step
+(`tasks/drift/fused.py`); this module holds the config, the track, the
+startup DR, the spawn sampler and the reward/curriculum tables."""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from ...assets.robots import (
+    F1TENTH_4WD_ACTION, F1TENTH_CFG, MUSHR_RWD_ACTION, MUSHR_SUS_2WD_CFG,
+)
+from ...envs.env import (
+    CurriculumTerm, EnvCfg, PushEvent, RewardTerm, TaskModel, WheeledEnv,
+)
+from ...sim.types import VehicleState, batch_params, with_mass
+from ...utils import math as wmath
+from ...utils.config import configclass
+from ..common.observations import BLIND_OBS_DIM, blind_obs
+
+# Common constants (reference mushr_drift_env_cfg.py:27-32)
+CORNER_IN_RADIUS = 0.3
+CORNER_OUT_RADIUS = 2.0
+LINE_RADIUS = 0.8
+STRAIGHT = 0.8
+SLIP_THRESHOLD = 0.55
+MAX_SPEED = 3.0
+
+SPAWN_Z = 0.06  # body-origin rest height (params.com_height)
+
+# Reward terms with their initial weights (DriftRewardsCfg,
+# mushr_drift_env_cfg.py:242-299), in the fused step's row order.
+REWARD_TERMS = (
+    RewardTerm("side_slip", 10.0),
+    RewardTerm("vel", -5.0),
+    RewardTerm("progress", 40.0),
+    RewardTerm("tlgr", 0.0),
+    RewardTerm("turn_energy", 20.0),
+    RewardTerm("cross_track", -50.0),
+    RewardTerm("term_pens", -5000.0),
+)
+CURRICULUM = (
+    CurriculumTerm("side_slip", 20.0, 20, 10),
+    CurriculumTerm("tlgr", 10.0, 20, 5),
+    CurriculumTerm("term_pens", -1000.0, 50, 5),
+)
+PUSHES = (
+    PushEvent(interval_range_s=(0.1, 0.4), lin_x=(-0.1, 0.1),
+              lin_y=(-0.03, 0.03), yaw=(-0.3, 0.3)),
+    PushEvent(interval_range_s=(0.8, 1.2), yaw=(-0.6, 0.6)),
+)
+
+
+@configclass
+class DriftTaskCfg:
+    """Parity: MushrDriftRLEnvCfg (mushr_drift_env_cfg.py:369-404)."""
+
+    num_envs: int = 1024
+    seed: int = 42
+    robot: str = "mushr"             # "mushr" | "f1tenth"
+    sim_dt: float = 0.005            # 200 Hz
+    decimation: int = 4              # 50 Hz control
+    episode_length_s: float = 5.0
+    # reset event (DriftEventsCfg, :82-93)
+    track_radius: float = LINE_RADIUS
+    track_straight_dist: float = STRAIGHT
+    num_reset_points: int = 20
+    pos_noise: float = 0.5
+    yaw_noise: float = 1.0
+    # DR events (DriftEventsRandomCfg, :96-154)
+    friction_range: Tuple[float, float] = (0.3, 0.5)
+    friction_buckets: int = 20
+    mass_delta_range: Tuple[float, float] = (0.3, 0.5)
+    motor_damping_range: Tuple[float, float] = (10.0, 50.0)
+    enable_corruption: bool = True
+    events_enabled: bool = True
+    terminations_enabled: bool = True  # Play strips terminations
+    rewards_enabled: bool = True       # Play strips rewards + curriculum too
+    ground_friction: float = 1.0     # carpet dynamic friction (:45-50)
+
+
+def reference_track_poses(cfg: DriftTaskCfg, u: torch.Tensor) -> torch.Tensor:
+    """`num_reset_points` poses by arc-length parameterization of the oval
+    (generate_reference_poses, drifting/mdp/events.py:33-100), at track
+    fractions `u` (N,) in [0, 1). Returns (N, 4): x, y, z, yaw_rad."""
+    radius, straight = cfg.track_radius, cfg.track_straight_dist
+    n = u.shape[0]
+    dist_track = 2.0 * math.pi * radius + 4.0 * straight
+    dists = u * dist_track
+    full = lambda v: torch.full((n,), v, dtype=torch.float32)
+
+    # Case 1: right straight, heading +y (90 deg)
+    c1_pos = torch.stack([full(radius), dists - straight], -1)
+    c1_yaw = full(90.0)
+    # Case 2: top semicircle
+    a = (dists - 2 * straight) / radius
+    c2_pos = torch.stack([radius * torch.cos(a),
+                          straight + radius * torch.sin(a)], -1)
+    c2_yaw = 90.0 + a * 180.0 / math.pi
+    # Case 3: left straight, heading -y (270 deg)
+    rem = dists - 2 * straight - math.pi * radius
+    c3_pos = torch.stack([full(-radius), straight - rem], -1)
+    c3_yaw = full(270.0)
+    # Case 4: bottom semicircle
+    a2 = (dists - 4 * straight - math.pi * radius) / radius
+    c4_pos = torch.stack([-radius * torch.cos(a2),
+                          -straight - radius * torch.sin(a2)], -1)
+    c4_yaw = 270.0 + a2 * 180.0 / math.pi
+
+    in1 = (dists < 2 * straight)[:, None]
+    in2 = (dists < 2 * straight + math.pi * radius)[:, None]
+    in3 = (dists < 4 * straight + math.pi * radius)[:, None]
+    pos = torch.where(in1, c1_pos, torch.where(
+        in2, c2_pos, torch.where(in3, c3_pos, c4_pos)))
+    yaw = torch.where(in1[:, 0], c1_yaw, torch.where(
+        in2[:, 0], c2_yaw, torch.where(in3[:, 0], c3_yaw, c4_yaw)))
+    return torch.cat([pos, full(SPAWN_Z)[:, None],
+                      torch.deg2rad(yaw)[:, None]], -1)
+
+
+def _uniform(g, shape, lo, hi, device):
+    return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
+
+
+def make_drift_task(cfg: DriftTaskCfg) -> TaskModel:
+    # the pose table is a host constant drawn from the task seed
+    track_gen = torch.Generator().manual_seed(cfg.seed + 17)
+    ref_poses = reference_track_poses(
+        cfg, torch.rand((cfg.num_reset_points,), generator=track_gen))
+
+    if cfg.robot == "mushr":
+        base_params, action = MUSHR_SUS_2WD_CFG, MUSHR_RWD_ACTION
+    elif cfg.robot == "f1tenth":
+        base_params, action = F1TENTH_CFG, F1TENTH_4WD_ACTION
+    else:
+        raise ValueError(cfg.robot)
+
+    env_cfg = EnvCfg(
+        num_envs=cfg.num_envs, sim_dt=cfg.sim_dt, decimation=cfg.decimation,
+        episode_length_s=cfg.episode_length_s, action=action,
+        enable_corruption=cfg.enable_corruption,
+        events_enabled=cfg.events_enabled)
+
+    def init_params(g, num, device):
+        """Startup DR (DriftEventsRandomCfg :96-154): per-wheel friction from
+        buckets, motor damping uniform-abs, base mass add uniform."""
+        params = batch_params(base_params, num, device)
+        if not cfg.events_enabled:
+            return params
+        buckets = _uniform(g, (cfg.friction_buckets,), *cfg.friction_range,
+                           device)
+        assign = torch.randint(0, cfg.friction_buckets, (num, 4),
+                               generator=g, device=device)
+        tire_mu = buckets[assign]
+        damping = _uniform(g, (num, 1), *cfg.motor_damping_range, device)
+        motor_damping = damping.expand(num, 4).contiguous()
+        dmass = _uniform(g, (num,), *cfg.mass_delta_range, device)
+        params = params.replace(tire_mu=tire_mu, motor_damping=motor_damping)
+        return with_mass(params, params.mass + dmass)
+
+    def sample_spawn(g, num, device):
+        """Reset along track (reset_root_state_along_track,
+        drifting/mdp/events.py:102-133)."""
+        idx = torch.randint(0, cfg.num_reset_points, (num,), generator=g,
+                            device=device)
+        ref = ref_poses.to(device)[idx]
+        xy_noise = (torch.rand((num, 2), generator=g, device=device) * 2
+                    - 1) * cfg.pos_noise
+        yaw_noise = (torch.rand((num,), generator=g, device=device) * 2
+                     - 1) * cfg.yaw_noise
+        pos = torch.stack([ref[:, 0] + xy_noise[:, 0],
+                           ref[:, 1] + xy_noise[:, 1], ref[:, 2]], -1)
+        quat = wmath.quat_from_yaw(ref[:, 3] + yaw_noise)
+        return VehicleState.zero((num,), device).replace(pos=pos, quat=quat)
+
+    def observe(vehicle, last_action, g):
+        return blind_obs(vehicle, last_action, cfg.enable_corruption, g)
+
+    fused_step = None
+    if cfg.rewards_enabled:
+        from .fused import make_fused_drift_step
+
+        fused_step = make_fused_drift_step(cfg, env_cfg, ref_poses)
+
+    return TaskModel(
+        cfg=env_cfg,
+        obs_dim=BLIND_OBS_DIM,
+        ground_friction=cfg.ground_friction,
+        init_params=init_params,
+        sample_spawn=sample_spawn,
+        reward_terms=REWARD_TERMS if cfg.rewards_enabled else (),
+        observe=observe,
+        curriculum=CURRICULUM if cfg.rewards_enabled else (),
+        pushes=PUSHES if cfg.events_enabled else (),
+        fused_step=fused_step,
+    )
+
+
+def make_drift_env(cfg: DriftTaskCfg = DriftTaskCfg(), device="cuda",
+                   seed: int = 0) -> WheeledEnv:
+    return WheeledEnv(make_drift_task(cfg), device=device, seed=seed)

@@ -1,0 +1,62 @@
+"""Quaternion / rotation / frame math on torch tensors — the port of
+`wheeledlab_tpu/utils/math.py` that the drift slice needs.
+
+Quaternions are (w, x, y, z); every function is shape-polymorphic over
+leading batch dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v from body to world frame by quaternion q."""
+    qw = q[..., 0:1]
+    qv = q[..., 1:4]
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + qw * t + torch.linalg.cross(qv, t, dim=-1)
+
+
+def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v from world to body frame by quaternion q."""
+    return quat_rotate(quat_conj(q), v)
+
+
+def quat_from_euler_xyz(roll: torch.Tensor, pitch: torch.Tensor,
+                        yaw: torch.Tensor) -> torch.Tensor:
+    """Quaternion from intrinsic XYZ euler angles (isaaclab
+    math_utils.quat_from_euler_xyz)."""
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack(
+        [
+            cy * cp * cr + sy * sp * sr,
+            cy * cp * sr - sy * sp * cr,
+            cy * sp * cr + sy * cp * sr,
+            sy * cp * cr - cy * sp * sr,
+        ],
+        dim=-1,
+    )
+
+
+def euler_xyz_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Euler XYZ (roll, pitch, yaw) from quaternion, stacked (..., 3), with
+    the EXACT atan2/asin (the reset observation uses these; the fused step's
+    observation uses the approximations of `sim/soa.py`)."""
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    sinp = torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0)
+    pitch = torch.asin(sinp)
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
+    zeros = torch.zeros_like(yaw)
+    return quat_from_euler_xyz(zeros, zeros, yaw)
