@@ -8,20 +8,32 @@ printing its final line:
 
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — build every CUDA kernel of the port from `wheeledlab_torch/csrc`
-             (nvcc) and print the build time and ptxas resource report.
-3. kernel  — hold the fused drift step kernel against its plain PyTorch
-             version (`drift_step_rows`) on the card, at 16384 envs, at the
-             training config's 1024 envs and at a ragged 1000 envs, for the
-             MuSHR (rwd, clip) and F1Tenth (4wd) robots, with push events and
-             observation noise on, and states that leave the track or reach
-             the time limit. Every env must agree.
-4. train   — `wheeledlab_torch.rl.runner.train` on RSS_DRIFT_CONFIG at full
-             width (1024 envs, 128 steps, 5 epochs x 4 minibatches) for 3
-             iterations on the card; the kernel must carry every env step.
-5. timing  — the kernel's time with CUDA events beside its plain version's
-             and the card's bound, at 16384 and 1024 envs.
+             (one nvcc per source, all started together) and print the
+             build time and each ptxas resource report.
+3. kernel  — hold each kernel against its plain PyTorch version on the
+             card; every env must agree:
+             K1, the fused drift step (`drift_step_rows`), at 16384, 1024
+             and 1000 envs, for MuSHR and F1Tenth, with push events,
+             observation noise, resets and time-outs firing;
+             K2, the flat physics step (the `substep_soa` loop), at 16384,
+             1024, 1000 and 16 envs, decimation 4 and 20, both robots;
+             K3, the heightfield physics step (the `substep_soa_hf` loop), at
+             16384, 1024 and 1000 envs, decimation 10, p = 12, with states
+             over the mounds of a generated terrain, wheels in and out of
+             contact, some envs airborne.
+4. train   — `wheeledlab_torch.rl.runner.train` for 3 iterations at full
+             width (1024 envs, 128 steps, 5 epochs x 4 minibatches): on
+             RSS_DRIFT_CONFIG, where K1 must carry every env step (384
+             launches), and on RSS_ELEV_CONFIG (obs 689), where K3 must (384
+             launches); no other kernel may launch.
+5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
+             its play variant for 200 steps at 16 envs through the generic
+             step, where K2 must carry every step (200 launches).
+6. timing  — each kernel's time with CUDA events (eager and as a CUDA
+             graph) beside its plain version's and the card's bound.
 
-It imports nothing of JAX. The last line is the result object.
+Every launch counter is set to 0 just before a path is driven and read just
+after. It imports nothing of JAX. The last line is the result object.
 """
 
 from __future__ import annotations
@@ -33,8 +45,9 @@ import subprocess
 import tempfile
 import time
 
-# nvcc's default FMA contraction moves the kernel's floats by a few ulp
-# against the plain version; integers and done flags must match exactly.
+# nvcc's default FMA contraction moves K1's and K2's floats by a few ulp
+# against the plain version (K3 is built without it and matches exactly);
+# integers and done flags must match exactly.
 FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor-
 # core) operations/s
@@ -48,7 +61,20 @@ FP32_OPS_PER_S = 67e12
 # sinf, cosf, tanhf, floorf counts one; comparisons, selects, min/max, abs
 # and negation count none.
 OPS_PER_ENV = 4 * 738 + 423
+# One flat-ground substep (`substep.cuh::substep_flat`): 738, as above.
+FLAT_SUBSTEP_OPS = 738
+# One heightfield substep (`substep_hf.cuh::substep_hf`), counted the same
+# way: the flat substep's rotation (39), steering servo (38) and rigid body
+# (129) plus 4 wheels x 210 (the flat wheel's 129 plus 81: the patch query
+# 39 — coordinates 6, floorf 2, fractions 2, bilinear height 12, gradient 9,
+# normal 8 — then the terrain height in the penetration 1, the penetration
+# rate along the normal 5, the tire frame projected on the contact plane 23,
+# the 3-D slip velocities 4 and the normal in the force 9) plus 22 for the
+# steered wheels' heading (16 flat, 6 for its z row).
+HF_SUBSTEP_OPS = 39 + 38 + 129 + 4 * 210 + 22
 TIMING_WINDOW_S = 2.0
+K2_REPLACES = "wheeledlab_tpu/ops/pallas_substep.py:53"
+K3_REPLACES = "wheeledlab_tpu/ops/pallas_substep_hf.py:60"
 
 
 def phase(name):
@@ -76,14 +102,17 @@ def build_phase():
 
     phase("build")
     t0 = time.perf_counter()
-    build.load_library("fused_drift")
-    print(f"build_s {time.perf_counter() - t0:.2f}")
-    registers = None
-    for line in build.BUILD_LOGS.get("fused_drift", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("ptxas:", line.strip())
-        if "Used" in line and "registers" in line:
-            registers = line.split("ptxas info    :")[-1].strip()
+    build.build_all(build.SOURCES)
+    print(f"build_s {time.perf_counter() - t0:.2f} (all sources in "
+          f"parallel)")
+    registers = {}
+    for name in build.SOURCES:
+        build.load_library(name)
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"ptxas {name}:", line.strip())
+            if "Used" in line and "registers" in line:
+                registers[name] = line.split("ptxas info    :")[-1].strip()
     return registers
 
 
@@ -217,44 +246,206 @@ def kernel_phase(device):
     return max_err, cases
 
 
-def train_phase(device):
+def compare_rows(got, want):
+    """Agreement of one (rows, B) float output over every env: (max |kernel
+    - plain|, number of envs beyond FLOAT_TOL)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output not finite")
+    err = (got - want).abs()
+    tol = FLOAT_TOL["atol"] + FLOAT_TOL["rtol"] * want.abs()
+    return err.max().item(), int((err > tol).any(0).sum())
+
+
+def flat_inputs(robot, b, seed, device):
+    """Inputs of one flat physics step (K2): the states, DR'd params and
+    policy actions of `step_inputs`, mapped to joint targets by the robot's
+    action map."""
+    from wheeledlab_torch.assets.robots import (
+        F1TENTH_4WD_ACTION, MUSHR_RWD_ACTION,
+    )
+    from wheeledlab_torch.sim.actions import action_to_targets
+
+    _, x = step_inputs(robot, b, seed, device)
+    action = {"mushr": MUSHR_RWD_ACTION, "f1tenth": F1TENTH_4WD_ACTION}[robot]
+    steer_t, wheel_t = action_to_targets(x["action_rows"].T, action)
+    return dict(state=x["state"], params=x["params"],
+                steer_t=steer_t.T.contiguous(),
+                wheel_t=wheel_t.T.contiguous())
+
+
+def hf_inputs(b, seed, device):
+    """Inputs of one heightfield physics step (K3) at the elevation task's
+    constants, made with numpy from `seed`: states over the mounds of a
+    generated terrain, from wheels pressed into the ground to airborne,
+    tilted and moving; DR'd params; the patches and origins that
+    `PatchAtlas.extract_rows` gives for those positions. Returns (consts,
+    inputs, envs with a wheel in contact, envs with none)."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.sim.actions import action_to_targets
+    from wheeledlab_torch.sim.soa import pack_params
+    from wheeledlab_torch.tasks.elevation.task import (
+        REST_H, ElevationTaskCfg, make_elevation_task,
+    )
+    from wheeledlab_torch.utils import math as wmath
+
+    rng = np.random.default_rng(seed)
+    task = make_elevation_task(ElevationTaskCfg(num_envs=b), device)
+    atlas = task.contact_atlas
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = pack_params(task.init_params(gen, b, device),
+                         task.terrain.friction)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, shape or (b,))
+    xy = f32(u(-19, 19, b, 2))
+    ground = atlas.lookup(xy).cpu().numpy()
+    roll, pitch, yaw = u(-0.3, 0.3), u(-0.3, 0.3), u(-math.pi, math.pi)
+    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
+    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
+    cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
+    quat = [cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
+            cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr]
+    state = f32(np.stack([
+        xy[:, 0].cpu().numpy(), xy[:, 1].cpu().numpy(),
+        ground + REST_H + u(-0.03, 0.12), *quat,
+        u(-3, 3), u(-3, 3), u(-0.5, 0.5), u(-1, 1), u(-1, 1), u(-3, 3),
+        *u(-10, 80, 4, b), *u(-0.5, 0.5, 2, b), *u(-2, 2, 2, b)]))
+    patch, org = atlas.extract_rows(state[0], state[1])
+    steer_t, wheel_t = action_to_targets(f32(rng.normal(0, 1, (b, 2))),
+                                         task.cfg.action)
+    # wheels in contact at the start: terrain height + radius above the
+    # wheel center
+    rot = wmath.matrix_from_quat(state[3:7].T)                 # (B, 3, 3)
+    wheel_b = params[6:18].T.reshape(b, 4, 3)
+    centers = state[0:3].T[:, None] + torch.einsum("bij,bwj->bwi", rot,
+                                                   wheel_b)
+    under = atlas.lookup(centers[..., :2].reshape(-1, 2)).reshape(b, 4)
+    touching = (under + params[5][:, None] - centers[..., 2] > 0).any(1)
+    nx, ny = atlas.grid_shape
+    consts = dict(dt=task.cfg.sim_dt, decimation=task.cfg.decimation,
+                  p=atlas.p, nx=nx, ny=ny, cell=atlas.cell)
+    inputs = dict(state=state, params=params, patch=patch, org=org,
+                  steer_t=steer_t.T.contiguous(),
+                  wheel_t=wheel_t.T.contiguous())
+    n_touch = int(touching.sum())
+    return consts, inputs, n_touch, b - n_touch
+
+
+def physics_phase(device):
+    """K2 and K3 against their plain versions. Every case is checked and
+    printed before a disagreement raises."""
+    import torch
+
+    from wheeledlab_torch.ops.physics_step import (
+        physics_step, physics_step_rows,
+    )
+    from wheeledlab_torch.ops.physics_step_hf import (
+        physics_step_hf, physics_step_hf_rows,
+    )
+
+    phase("kernel (K2, K3)")
+    errs = {"K2": 0.0, "K3": 0.0}
+    cases, failures = {}, []
+    for robot in ("mushr", "f1tenth"):
+        for b in (16384, 1024, 1000, 16):
+            x = flat_inputs(robot, b, seed=7 * b + len(robot), device=device)
+            for dec in (4, 20):
+                k = dict(dt=0.005, decimation=dec)
+                got = physics_step(**x, **k)
+                torch.cuda.synchronize()
+                err, bad = compare_rows(got, physics_step_rows(**x, **k))
+                print(f"K2 {robot} B={b} decimation {dec}: max_abs_err "
+                      f"{err:.3e}, envs beyond tolerance {bad}", flush=True)
+                errs["K2"] = max(errs["K2"], err)
+                if bad:
+                    failures.append(f"K2 {robot} B={b} dec {dec}: {bad}")
+                cases[("K2", robot, b, dec)] = (x, k)
+    for b in (16384, 1024, 1000):
+        k, x, touch, air = hf_inputs(b, seed=b, device=device)
+        if touch == 0 or air == 0:
+            raise AssertionError(f"K3 inputs: {touch} envs touch the "
+                                 f"ground, {air} do not; need both")
+        got = physics_step_hf(**x, **k)
+        torch.cuda.synchronize()
+        err, bad = compare_rows(got, physics_step_hf_rows(**x, **k))
+        print(f"K3 B={b} decimation {k['decimation']} p={k['p']}: "
+              f"max_abs_err {err:.3e}, envs beyond tolerance {bad}; "
+              f"{touch} envs start with a wheel in contact, {air} airborne",
+              flush=True)
+        errs["K3"] = max(errs["K3"], err)
+        if bad:
+            failures.append(f"K3 B={b}: {bad}")
+        cases[("K3", b)] = (x, k)
+    if failures:
+        raise AssertionError("envs beyond tolerance: " + "; ".join(failures))
+    return errs, cases
+
+
+def reset_launches():
+    from wheeledlab_torch.ops import physics_step, physics_step_hf
+    from wheeledlab_torch.tasks.drift import fused
+
+    fused.LAUNCHES = physics_step.LAUNCHES = physics_step_hf.LAUNCHES = 0
+
+
+def read_launches():
+    from wheeledlab_torch.ops import physics_step, physics_step_hf
+    from wheeledlab_torch.tasks.drift import fused
+
+    return {"K1": fused.LAUNCHES, "K2": physics_step.LAUNCHES,
+            "K3": physics_step_hf.LAUNCHES}
+
+
+def check_launches(path, got, want):
+    print(f"{path}: launches {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def train_run(device, logs, config, run_name, obs_dim, kernel):
+    """3 full-width training iterations of `config`; `kernel` must carry
+    every env step and no other kernel may launch. Returns (launches,
+    iteration ms)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
     from wheeledlab_torch.rl.runner import train
-    from wheeledlab_torch.tasks.drift import fused
     from wheeledlab_torch.utils.config import RUN_CONFIGS, override
 
-    phase("train")
     iters = 3
-    with tempfile.TemporaryDirectory() as logs:
-        cfg = RUN_CONFIGS.get("RSS_DRIFT_CONFIG")
-        for k, v in (("train.num_iterations", iters),
-                     ("train.log.logs_dir", logs),
-                     ("train.log.run_name", "smoke"),
-                     ("train.log.log_every", 1),
-                     ("train.log.checkpoint_every", 1000),
-                     ("device", device)):
-            cfg = override(cfg, k, v)
-        assert (cfg.num_envs, cfg.agent.num_steps_per_env,
-                cfg.agent.num_learning_epochs,
-                cfg.agent.num_mini_batches) == (1024, 128, 5, 4)
-        fused.LAUNCHES = 0
-        state, last = train(cfg)
-        torch.cuda.synchronize()
-        launches = fused.LAUNCHES
-        with open(os.path.join(logs, "smoke", "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-    want = iters * cfg.agent.num_steps_per_env
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    cfg = RUN_CONFIGS.get(config)
+    for k, v in (("train.num_iterations", iters),
+                 ("train.log.logs_dir", logs),
+                 ("train.log.run_name", run_name),
+                 ("train.log.log_every", 1),
+                 ("train.log.checkpoint_every", 1000),
+                 ("device", device)):
+        cfg = override(cfg, k, v)
+    assert (cfg.num_envs, cfg.agent.num_steps_per_env,
+            cfg.agent.num_learning_epochs,
+            cfg.agent.num_mini_batches) == (1024, 128, 5, 4)
+    reset_launches()
+    state, last = train(cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"K1": 0, "K2": 0, "K3": 0}
+    want[kernel] = iters * cfg.agent.num_steps_per_env
+    check_launches(config, launches, want)
+    with open(os.path.join(logs, run_name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
     for row in rows:
         for k in ("loss/total", "loss/surrogate", "loss/value",
                   "rollout/reward_mean"):
             if not math.isfinite(row[k]):
                 raise AssertionError(f"{k} not finite: {row[k]}")
     obs = state.obs
-    if tuple(obs.shape) != (1024, 14) or not torch.isfinite(obs).all():
+    if tuple(obs.shape) != (1024, obs_dim) or not torch.isfinite(obs).all():
         raise AssertionError("final observation malformed")
     prev, iter_ms = 0.0, []
     for row in rows:
@@ -262,11 +453,50 @@ def train_phase(device):
         iter_ms.append(1000.0 * (cum - prev))
         prev = cum
     steps = cfg.num_envs * cfg.agent.num_steps_per_env
-    print(f"launches {launches}; iteration ms "
-          f"{[round(t, 3) for t in iter_ms]}; env-steps/s (last iteration) "
-          f"{steps / (iter_ms[-1] / 1000.0):.1f}; loss/total "
-          f"{rows[-1]['loss/total']:.4f}", flush=True)
-    return launches, iter_ms
+    print(f"{config}: iteration ms {[round(t, 3) for t in iter_ms]}; "
+          f"env-steps/s (last iteration) {steps / (iter_ms[-1] / 1000.0):.1f}"
+          f"; loss/total {rows[-1]['loss/total']:.4f}; rollout/reward_mean "
+          f"{rows[-1]['rollout/reward_mean']:.4f}", flush=True)
+    return launches[kernel], iter_ms
+
+
+def train_phase(device, logs):
+    phase("train")
+    drift = train_run(device, logs, "RSS_DRIFT_CONFIG", "smoke", 14, "K1")
+    elev = train_run(device, logs, "RSS_ELEV_CONFIG", "elev", 689, "K3")
+    return drift, elev
+
+
+def play_phase(logs):
+    """The play CLI on the drift run: 200 steps at 16 envs through K2."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.cli import play
+
+    phase("play")
+    steps, envs = 200, 16
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = play.main(["--run", "smoke", "--logs-dir", logs, "--steps",
+                         str(steps), "--num-envs", str(envs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("play", read_launches(), {"K1": 0, "K2": steps, "K3": 0})
+    npz = np.load(os.path.join(logs, "smoke", "play", "smoke-rollouts.npz"))
+    keys = {"observations", "actions", "positions", "yaws", "rewards",
+            "commands"}
+    if set(npz.files) != keys:
+        raise AssertionError(f"rollout keys {sorted(npz.files)}")
+    if npz["observations"].shape != (steps, envs, 14):
+        raise AssertionError(f"observations {npz['observations'].shape}")
+    with open(os.path.join(logs, "smoke", "play", "play_metrics.json")) as f:
+        saved = json.load(f)
+    if saved != metrics or not all(math.isfinite(v) for v in saved.values()):
+        raise AssertionError(f"play metrics {saved}")
+    print(f"play: {steps} steps x {envs} envs in {wall:.2f} s; {saved}",
+          flush=True)
+    return steps
 
 
 def timed(fn, window_s=TIMING_WINDOW_S, min_calls=4):
@@ -337,26 +567,72 @@ def step_bytes(cfg, x):
     return 4 * ((words_in + words_out) * b + table_words)
 
 
-def timing_phase(cases, card):
+def bound(nbytes, ops):
+    bytes_ms = 1000.0 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1000.0 * ops / FP32_OPS_PER_S
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def timing_row(name, b, kernel, plain, nbytes, ops, card, **extra):
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = {"name": name, "envs": b, **extra, "ms": timed(kernel),
+           "graph_ms": graphed(kernel), "plain_ms": timed(plain),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops, "card": card}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def timing_phase(cases, phys_cases, card):
+    from wheeledlab_torch.ops.physics_step import (
+        physics_step, physics_step_rows,
+    )
+    from wheeledlab_torch.ops.physics_step_hf import (
+        physics_step_hf, physics_step_hf_rows,
+    )
+
     phase("timing")
     rows = {}
     for b in (16384, 1024):
         cfg, x = cases[("mushr", b)]
-        kernel_ms = timed(lambda: kernel_step(cfg, x))
-        graph_ms = graphed(lambda: kernel_step(cfg, x))
-        plain_ms = timed(lambda: plain_step(cfg, x))
-        nbytes = step_bytes(cfg, x)
-        ops = OPS_PER_ENV * b
-        bytes_ms = 1000.0 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1000.0 * ops / FP32_OPS_PER_S
-        row = {"name": "fused_drift_step", "envs": b, "ms": kernel_ms,
-               "graph_ms": graph_ms, "plain_ms": plain_ms,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": nbytes, "ops": ops, "card": card}
-        print(json.dumps(row), flush=True)
-        rows[b] = row
+        rows[("K1", b)] = timing_row(
+            "fused_drift_step", b, lambda: kernel_step(cfg, x),
+            lambda: plain_step(cfg, x), step_bytes(cfg, x), OPS_PER_ENV * b,
+            card)
+    # K2 at the play path's shape (16 envs, decimation 4) and at the
+    # training widths; it reads state, params and targets and writes state
+    for b in (16, 1024, 16384):
+        x, k = phys_cases[("K2", "mushr", b, 4)]
+        rows[("K2", b)] = timing_row(
+            "physics_step", b, lambda: physics_step(**x, **k),
+            lambda: physics_step_rows(**x, **k), 4 * (21 + 46 + 2 + 4 + 21) * b,
+            k["decimation"] * FLAT_SUBSTEP_OPS * b, card,
+            decimation=k["decimation"])
+    for b in (1024, 16384):
+        x, k = phys_cases[("K3", b)]
+        words = 21 + 46 + k["p"] ** 2 + 2 + 2 + 4 + 21
+        rows[("K3", b)] = timing_row(
+            "physics_step_hf", b, lambda: physics_step_hf(**x, **k),
+            lambda: physics_step_hf_rows(**x, **k), 4 * words * b,
+            k["decimation"] * HF_SUBSTEP_OPS * b, card,
+            decimation=k["decimation"], p=k["p"])
     return rows
+
+
+def kernel_line(name, source, replaces, launches, max_err, rows, main_b,
+                other_b, registers, **extra):
+    main, other = rows[main_b], rows[other_b]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "envs": main_b, "graph_ms": main["graph_ms"],
+        f"ms_{other_b}": other["ms"], f"graph_ms_{other_b}": other["graph_ms"],
+        f"plain_ms_{other_b}": other["plain_ms"],
+        f"bound_ms_{other_b}": other["bound_ms"], "ptxas": registers,
+        **extra}
 
 
 def main():
@@ -366,30 +642,32 @@ def main():
     device = "cuda"
     registers = build_phase()
     max_err, cases = kernel_phase(device)
-    launches, iter_ms = train_phase(device)
-    timing = timing_phase(cases, card)
-    main_row = timing[1024]
-    kernels = [{
-        "name": "fused_drift_step",
-        "route": "cuda",
-        "source": "wheeledlab_torch/csrc/fused_drift.cu",
-        "replaces": "wheeledlab_tpu/tasks/drift/fused.py:488",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "envs": 1024,
-        "graph_ms": main_row["graph_ms"],
-        "ms_16384": timing[16384]["ms"],
-        "graph_ms_16384": timing[16384]["graph_ms"],
-        "plain_ms_16384": timing[16384]["plain_ms"],
-        "bound_ms_16384": timing[16384]["bound_ms"],
-        "train_iteration_ms": iter_ms,
-        "ptxas": registers,
-    }]
+    phys_err, phys_cases = physics_phase(device)
+    with tempfile.TemporaryDirectory() as logs:
+        (k1_launches, drift_ms), (k3_launches, elev_ms) = train_phase(
+            device, logs)
+        k2_launches = play_phase(logs)
+    timing = timing_phase(cases, phys_cases, card)
+    k = lambda name: {b: r for (n, b), r in timing.items() if n == name}
+    kernels = [
+        kernel_line("fused_drift_step", "wheeledlab_torch/csrc/fused_drift.cu",
+                    "wheeledlab_tpu/tasks/drift/fused.py:488", k1_launches,
+                    max_err, k("K1"), 1024, 16384,
+                    registers.get("fused_drift"),
+                    train_iteration_ms=drift_ms),
+        kernel_line("physics_step", "wheeledlab_torch/csrc/physics_step.cu",
+                    K2_REPLACES, k2_launches, phys_err["K2"], k("K2"), 16,
+                    16384, registers.get("physics_step"),
+                    ms_1024=k("K2")[1024]["ms"],
+                    graph_ms_1024=k("K2")[1024]["graph_ms"],
+                    plain_ms_1024=k("K2")[1024]["plain_ms"],
+                    bound_ms_1024=k("K2")[1024]["bound_ms"]),
+        kernel_line("physics_step_hf",
+                    "wheeledlab_torch/csrc/physics_step_hf.cu", K3_REPLACES,
+                    k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
+                    registers.get("physics_step_hf"),
+                    train_iteration_ms=elev_ms),
+    ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

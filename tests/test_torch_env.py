@@ -117,8 +117,8 @@ class TestEnvParity:
     def test_reset_obs_matches_blind_obs(self):
         """The reset observation (exact euler angles, no noise) of the
         port on the carried-over state equals JAX's."""
-        _, js, jobs, _, ts = pair(key=1, enable_corruption=False)
-        got = blind_obs(ts.vehicle, ts.last_action, False)
+        _, js, jobs, tenv, ts = pair(key=1, enable_corruption=False)
+        got = blind_obs(tenv._make_ctx(ts, ts.vehicle), None, False)
         np.testing.assert_allclose(got.numpy(), np.asarray(jobs), atol=1e-6)
 
     def test_converts_either_carry_layout(self):
@@ -165,9 +165,21 @@ class TestTask:
             assert getattr(state, name).dtype == torch.int32, name
         assert state.push_timers.shape == (2, 64)
 
-    def test_play_variant_raises(self):
-        with pytest.raises(NotImplementedError):
-            make_env("MushrDriftRL-v0", num_envs=8, play=True, device="cpu")
+    def test_play_variant_resets_and_steps(self):
+        """The play variant runs the generic step: no rewards, no
+        terminations, the slip and speed metrics, finite observations."""
+        env = make_env("MushrDriftRL-v0", num_envs=8, play=True, device="cpu")
+        assert env.task.fused_step is None and not env.task.reward_terms
+        state, obs = env.reset()
+        assert obs.shape == (8, 14) and torch.isfinite(obs).all()
+        for _ in range(5):
+            state, out = env.step(state, torch.full((8, 2), 0.5))
+            assert torch.isfinite(out.obs).all()
+        assert sorted(out.info) == ["done/time_out", "episode_length",
+                                    "episode_return", "metrics/slip_deg",
+                                    "metrics/speed"]
+        assert (out.reward == 0).all() and not out.done.any()
+        assert state.common_step == 5 and (state.step_count == 5).all()
 
 
 if __name__ == "__main__":

@@ -57,6 +57,9 @@ def apply_actuators(params: VehicleParams,
     )
 
 
+MUSHR_CFG = apply_actuators(default_mushr_params(), HOUND_ACTUATOR_CFG)
+MUSHR_SUS_CFG = apply_actuators(default_mushr_params(),
+                                HOUND_SUS_ACTUATOR_CFG)   # 4WD, elevation
 MUSHR_SUS_2WD_CFG = apply_actuators(default_mushr_params(),
                                     HOUND_SUS_2WD_ACTUATOR_CFG)
 F1TENTH_CFG = apply_actuators(default_f1tenth_params(),
@@ -66,6 +69,7 @@ F1TENTH_CFG = apply_actuators(default_f1tenth_params(),
 MUSHR_RWD_ACTION = ActionMapCfg(
     drivetrain="rwd", scale=(3.0, 0.488), bounding_strategy="clip",
     no_reverse=True, base_length=0.325, base_width=0.2, wheel_radius=0.05)
+MUSHR_4WD_ACTION = MUSHR_RWD_ACTION.replace(drivetrain="4wd")
 F1TENTH_4WD_ACTION = ActionMapCfg(
     drivetrain="4wd", scale=(3.0, 0.488), bounding_strategy="clip",
     no_reverse=True, base_length=0.365, base_width=0.284, wheel_radius=0.05)

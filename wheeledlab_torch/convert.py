@@ -15,6 +15,7 @@ import torch
 from .envs.env import EnvState
 from .rl.networks import ActorCritic
 from .sim.soa import pack_params, pack_state
+from .sim.terrain import Heightfield
 from .sim.types import VehicleParams, VehicleState
 
 
@@ -53,8 +54,7 @@ def env_state_from_jax(state_np, ground_friction: float = 1.0,
                        device="cpu") -> EnvState:
     """The JAX `EnvState` (numpy leaves, either carry layout: an AoS
     `VehicleState` or packed (21, B) rows) -> the port's EnvState. The JAX
-    PRNG key has no counterpart: the port's env draws from its generator,
-    and the drift task's unused command fields are dropped.
+    PRNG key has no counterpart: the port's env draws from its generator.
     `ground_friction` is folded into the packed params when the JAX state
     carries none (its generic path)."""
     vm = _get(state_np, "vehicle_mem")
@@ -81,7 +81,17 @@ def env_state_from_jax(state_np, ground_friction: float = 1.0,
         common_step=int(_get(state_np, "common_step")),
         reward_weights=f32("reward_weights"),
         last_action=f32("last_action"),
+        command=f32("command"),
+        command_timer=i32("command_timer"),
         push_timers=i32("push_timers"),
         ep_return=f32("ep_return"),
         ep_len=i32("ep_len"),
     )
+
+
+def heightfield_from_jax(hf_np, device="cpu") -> Heightfield:
+    """A JAX `Heightfield` (numpy leaves `height`, `cell`, `friction`) ->
+    the port's, on `device`."""
+    return Heightfield(height=_t(_get(hf_np, "height"), device=device),
+                       cell=float(np.float32(_get(hf_np, "cell"))),
+                       friction=float(np.float32(_get(hf_np, "friction"))))

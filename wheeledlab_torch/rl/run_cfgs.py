@@ -1,8 +1,8 @@
 """Named run configs — the port of `wheeledlab_tpu/rl/run_cfgs.py` for the
-drift slice (reference configs/runs/rss_cfgs.py:8-53,
-runs/f1tenth_cfgs.py:7-21). RSS_ELEV_CONFIG, RSS_VISUAL_CONFIG,
-ELEV_GOAL_CONFIG, RSS_DRIFT_RNN_CONFIG and POD_DRIFT_CONFIG are registered
-when their tasks, learner and multi-process training are ported."""
+drift and elevation tasks (reference configs/runs/rss_cfgs.py:8-53,
+runs/f1tenth_cfgs.py:7-21). RSS_VISUAL_CONFIG, RSS_DRIFT_RNN_CONFIG and
+POD_DRIFT_CONFIG are registered when their task, learner and multi-process
+training are ported."""
 
 from __future__ import annotations
 
@@ -11,12 +11,32 @@ from .ppo import PPOCfg
 from .runner import LogCfg, RunConfig, TrainCfg
 
 DRIFT_PPO = PPOCfg(activation="elu")
+# `fuse_input_layer` is a TPU matmul-tiling knob and a no-op in the port
+ELEV_PPO = PPOCfg(activation="relu", fuse_input_layer=True)
 
 RSS_DRIFT_CONFIG = RunConfig(
     task_name="MushrDriftRL-v0",
     num_envs=1024,
     train=TrainCfg(num_iterations=5000, log=LogCfg()),
     agent=DRIFT_PPO,
+)
+
+RSS_ELEV_CONFIG = RunConfig(
+    task_name="MushrElevationRL-v0",
+    num_envs=1024,
+    train=TrainCfg(num_iterations=4000, log=LogCfg()),
+    agent=ELEV_PPO,
+)
+
+# Goal-seeking elevation variant (beyond the reference's registered
+# surface): the same task reweighted so that reaching the goal pays
+ELEV_GOAL_CONFIG = RunConfig(
+    task_name="MushrElevationRL-v0",
+    num_envs=1024,
+    train=TrainCfg(num_iterations=1500, log=LogCfg()),
+    agent=ELEV_PPO,
+    env_overrides={"goal_weight": 200.0, "height_weight": 500.0,
+                   "at_goal_bonus": 200000.0},
 )
 
 F1TENTH_DRIFT_CONFIG = RunConfig(
@@ -26,5 +46,6 @@ F1TENTH_DRIFT_CONFIG = RunConfig(
     agent=DRIFT_PPO,
 )
 
-for _name in ("RSS_DRIFT_CONFIG", "F1TENTH_DRIFT_CONFIG"):
+for _name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG", "ELEV_GOAL_CONFIG",
+              "F1TENTH_DRIFT_CONFIG"):
     RUN_CONFIGS.register(_name, globals()[_name])

@@ -1,6 +1,6 @@
 """Task registry — the port of `wheeledlab_tpu/tasks/__init__.py` for the
-drift slice. Task ids keep the reference names minus the "Isaac-" vendor
-prefix; the old ids are accepted as aliases."""
+drift and elevation tasks. Task ids keep the reference names minus the
+"Isaac-" vendor prefix; the old ids are accepted as aliases."""
 
 from __future__ import annotations
 
@@ -8,14 +8,15 @@ from typing import Any, Dict, Optional
 
 from ..utils.config import TASKS, apply_overrides
 from .drift.task import DriftTaskCfg, make_drift_env
+from .elevation.task import ElevationTaskCfg, make_elevation_env
 
 
 def _register_all():
     if "MushrDriftRL-v0" in TASKS:
         return
-    # Play variants (reference mushr_drift_env_cfg.py:410-430) strip rewards,
-    # curriculum and terminations and so need the generic step, which is not
-    # ported yet; `make_env(play=True)` raises until it is.
+    # Play variants mirror the reference (mushr_drift_env_cfg.py:410-430):
+    # rewards, curriculum and terminations stripped, deterministic resets;
+    # DR events and obs corruption stay on. They run the generic step.
     TASKS.register("MushrDriftRL-v0", {
         "cfg": DriftTaskCfg(),
         "play_cfg": DriftTaskCfg(pos_noise=0.0, yaw_noise=0.0,
@@ -31,6 +32,14 @@ def _register_all():
                                  rewards_enabled=False),
         "make": make_drift_env,
     })
+    # the reference's MushrElevationPlayEnvCfg (:472-474) strips nothing;
+    # terminations and rewards are stripped as in the other play variants
+    TASKS.register("MushrElevationRL-v0", {
+        "cfg": ElevationTaskCfg(),
+        "play_cfg": ElevationTaskCfg(terminations_enabled=False,
+                                     rewards_enabled=False),
+        "make": make_elevation_env,
+    })
 
 
 def resolve_task(task_name: str) -> Dict[str, Any]:
@@ -41,14 +50,11 @@ def resolve_task(task_name: str) -> Dict[str, Any]:
 def make_env(task_name: str, num_envs: Optional[int] = None,
              overrides: Optional[Dict[str, Any]] = None, play: bool = False,
              device="cuda", seed: int = 0):
-    """Build a task's env on `device` (CUDA unless the caller asks for the
-    CPU); its random draws come from a generator seeded with `seed`."""
-    if play:
-        raise NotImplementedError(
-            "play variants need the generic manager step, which is not "
-            "ported yet")
+    """Build a task's env (its play variant if `play`) on `device` (CUDA
+    unless the caller asks for the CPU); its random draws come from a
+    generator seeded with `seed`."""
     entry = resolve_task(task_name)
-    cfg = entry["cfg"]
+    cfg = entry["play_cfg"] if play else entry["cfg"]
     if num_envs is not None:
         cfg = cfg.replace(num_envs=num_envs)
     if overrides:

@@ -31,6 +31,7 @@ import math as pymath
 import numpy as np
 import torch
 
+from ...ops.checks import check_rows
 from ...sim.soa import (
     NUM_PARAM, NUM_STATE, asin_approx, atan2_approx, substep_soa,
 )
@@ -431,18 +432,6 @@ def _kernel_fn():
     return fn
 
 
-def _check(name, x, rows, b, dtype, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != (rows, b):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {(rows, b)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def fused_drift_step(weights, poses, state, params, action_rows, uniforms,
                      normals, step_count, timers, ep_return, ep_len,
                      cfg: FusedDriftConsts):
@@ -461,8 +450,8 @@ def fused_drift_step(weights, poses, state, params, action_rows, uniforms,
     device = state.device
     b = state.shape[-1]
     f32, i32 = torch.float32, torch.int32
-    _check("weights", weights.view(1, -1), 1, NUM_TERMS, f32, device)
-    _check("poses", poses, cfg.num_reset_points, 4, f32, device)
+    check_rows("weights", weights.view(1, -1), 1, NUM_TERMS, device)
+    check_rows("poses", poses, cfg.num_reset_points, 4, device)
     for name, x, rows, dt in (
             ("state", state, NUM_STATE, f32),
             ("params", params, NUM_PARAM, f32),
@@ -472,7 +461,7 @@ def fused_drift_step(weights, poses, state, params, action_rows, uniforms,
             ("step_count", step_count, 1, i32),
             ("timers", timers, cfg.n_push, i32),
             ("ep_return", ep_return, 1, f32), ("ep_len", ep_len, 1, i32)):
-        _check(name, x, rows, b, dt, device)
+        check_rows(name, x, rows, b, device, dt)
 
     if device.type == "cpu":
         nsr, obs, out, sc, tm, er, el = drift_step_rows(
@@ -556,6 +545,7 @@ def make_fused_drift_step(task_cfg, env_cfg, ref_poses):
             reward_weights=env._curriculum_weights(state.reward_weights,
                                                    common_step),
             last_action=torch.where(done[:, None], 0.0, action),
+            command=state.command, command_timer=state.command_timer,
             push_timers=timers, ep_return=ep_return[0], ep_len=ep_len[0])
         return new_state, StepOutput(obs=obs, reward=reward, done=done,
                                      time_out=time_out, info=info)

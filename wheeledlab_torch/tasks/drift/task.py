@@ -2,10 +2,11 @@
 drifting/mushr_drift_env_cfg.py).
 
 Oval track: two straights at x = ±LINE_RADIUS (|y| <= STRAIGHT) joined by
-semicircles of radius LINE_RADIUS centered at (0, ±STRAIGHT). The reward
-terms, terminations and reset are computed by the fused step
-(`tasks/drift/fused.py`); this module holds the config, the track, the
-startup DR, the spawn sampler and the reward/curriculum tables."""
+semicircles of radius LINE_RADIUS centered at (0, ±STRAIGHT). In the
+training variant the reward terms, terminations and reset are computed by
+the fused step (`tasks/drift/fused.py`). The play variants strip rewards,
+curriculum and terminations and go through the generic manager step, whose
+physics is kernel K2; they report the `slip_deg` and `speed` metrics."""
 
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ from ...assets.robots import (
     F1TENTH_4WD_ACTION, F1TENTH_CFG, MUSHR_RWD_ACTION, MUSHR_SUS_2WD_CFG,
 )
 from ...envs.env import (
-    CurriculumTerm, EnvCfg, PushEvent, RewardTerm, TaskModel, WheeledEnv,
+    CurriculumTerm, EnvCfg, PushEvent, RewardTerm, StepCtx, TaskModel,
+    WheeledEnv,
 )
+from ...sim.terrain import Heightfield
 from ...sim.types import VehicleState, batch_params, with_mass
 from ...utils import math as wmath
 from ...utils.config import configclass
@@ -125,6 +128,38 @@ def reference_track_poses(cfg: DriftTaskCfg, u: torch.Tensor) -> torch.Tensor:
                       torch.deg2rad(yaw)[:, None]], -1)
 
 
+def _off_or_in(pos: torch.Tensor, straight: float) -> torch.Tensor:
+    """Outside the outer boundary or inside the infield
+    (mushr_drift_env_cfg.py:201-217)."""
+    x, y = pos[..., 0], pos[..., 1]
+    on_straights = torch.abs(y) < straight
+    corner_sq = torch.where(y > 0, (y - straight) ** 2,
+                            (y + straight) ** 2) + x**2
+    off = torch.where(on_straights, torch.abs(x) > CORNER_OUT_RADIUS,
+                      corner_sq > CORNER_OUT_RADIUS**2)
+    inside = torch.where(on_straights, torch.abs(x) < CORNER_IN_RADIUS,
+                         corner_sq < CORNER_IN_RADIUS**2)
+    return off | inside
+
+
+def cart_off_track(ctx: StepCtx) -> torch.Tensor:
+    """The out_of_bounds termination (DriftTerminationsCfg, :350-362)."""
+    return _off_or_in(ctx.vehicle.pos, STRAIGHT)
+
+
+def slip_deg(ctx: StepCtx, min_vel_x: float = 1.0) -> torch.Tensor:
+    """|slip angle| in degrees where the car moves forward at >= 1 m/s
+    (gated like the side_slip reward, mushr_drift_env_cfg.py:219-230)."""
+    vel = ctx.body_lin_vel
+    slip = torch.abs(torch.atan2(vel[..., 1], vel[..., 0]))
+    return torch.where(torch.abs(vel[..., 0]) >= min_vel_x,
+                       torch.rad2deg(slip), 0.0)
+
+
+def ground_speed(ctx: StepCtx) -> torch.Tensor:
+    return torch.linalg.vector_norm(ctx.body_lin_vel[..., :2], dim=-1)
+
+
 def _uniform(g, shape, lo, hi, device):
     return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
 
@@ -180,8 +215,8 @@ def make_drift_task(cfg: DriftTaskCfg) -> TaskModel:
         quat = wmath.quat_from_yaw(ref[:, 3] + yaw_noise)
         return VehicleState.zero((num,), device).replace(pos=pos, quat=quat)
 
-    def observe(vehicle, last_action, g):
-        return blind_obs(vehicle, last_action, cfg.enable_corruption, g)
+    def observe(ctx, g):
+        return blind_obs(ctx, g, cfg.enable_corruption)
 
     fused_step = None
     if cfg.rewards_enabled:
@@ -191,14 +226,17 @@ def make_drift_task(cfg: DriftTaskCfg) -> TaskModel:
 
     return TaskModel(
         cfg=env_cfg,
+        terrain=Heightfield.flat(friction=cfg.ground_friction),
         obs_dim=BLIND_OBS_DIM,
-        ground_friction=cfg.ground_friction,
         init_params=init_params,
         sample_spawn=sample_spawn,
         reward_terms=REWARD_TERMS if cfg.rewards_enabled else (),
+        termination_fns=({"out_of_bounds": cart_off_track}
+                         if cfg.terminations_enabled else {}),
         observe=observe,
         curriculum=CURRICULUM if cfg.rewards_enabled else (),
         pushes=PUSHES if cfg.events_enabled else (),
+        metric_fns={"slip_deg": slip_deg, "speed": ground_speed},
         fused_step=fused_step,
     )
 

@@ -1,5 +1,5 @@
 """Quaternion / rotation / frame math on torch tensors — the port of
-`wheeledlab_tpu/utils/math.py` that the drift slice needs.
+`wheeledlab_tpu/utils/math.py` that the ported slices need.
 
 Quaternions are (w, x, y, z); every function is shape-polymorphic over
 leading batch dims.
@@ -60,3 +60,45 @@ def euler_xyz_from_quat(q: torch.Tensor) -> torch.Tensor:
 def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
     zeros = torch.zeros_like(yaw)
     return quat_from_euler_xyz(zeros, zeros, yaw)
+
+
+def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = q.unbind(-1)
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def matrix_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) from quaternion (w, x, y, z)."""
+    w, x, y, z = q.unbind(-1)
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - w * z)
+    r02 = 2 * (x * z + w * y)
+    r10 = 2 * (x * y + w * z)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - w * x)
+    r20 = 2 * (x * z - w * y)
+    r21 = 2 * (y * z + w * x)
+    r22 = 1 - 2 * (x * x + y * y)
+    return torch.stack([torch.stack([r00, r01, r02], -1),
+                        torch.stack([r10, r11, r12], -1),
+                        torch.stack([r20, r21, r22], -1)], -2)
+
+
+def up_dot(q: torch.Tensor) -> torch.Tensor:
+    """z-component of the body z axis in the world frame, R[2, 2]."""
+    w, x, y, z = q.unbind(-1)
+    return 1 - 2 * (x * x + y * y)
+
+
+def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
+    return torch.atan2(torch.sin(angle), torch.cos(angle))
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """`x / c` divided exactly, as JAX and the CUDA kernels divide. On a
+    CUDA tensor, PyTorch's `tensor / python_float` multiplies by the
+    reciprocal instead, an ulp away wherever `1 / c` is inexact (`dt`,
+    a stride of 6), so the divisor is made a tensor there."""
+    if x.is_cuda:
+        return x / torch.full_like(x, c)
+    return x / c
