@@ -11,7 +11,7 @@ printing its final line:
              (one nvcc per source, all started together) and print the
              build time and each ptxas resource report.
 3. kernel  — hold each kernel against its plain PyTorch version on the
-             card; every env must agree:
+             card; every env must agree (K4, K5a, K5b: see below):
              K1, the fused drift step (`drift_step_rows`), at 16384, 1024
              and 1000 envs, for MuSHR and F1Tenth, with push events,
              observation noise, resets and time-outs firing;
@@ -21,16 +21,35 @@ printing its final line:
              16384, 1024 and 1000 envs, decimation 10, p = 12, with states
              over the mounds of a generated terrain, wheels in and out of
              contact, some envs airborne.
+             K5b, the Philox random blocks (`philox_blocks`), at 4096, 1000
+             and 16 envs: the uniforms' 24-bit words bit for bit, the normals
+             within tolerance;
+             K4, the fused drift step that draws its rows in the kernel
+             (`philox_blocks` + `drift_step_rows`), at 16384, 1024 and 1000
+             envs, both robots, noise on and off, and bit for bit against K1
+             fed K5b's rows;
+             K5a, the K-step resident rollout (K chained `drift_step_rows`),
+             at K = 1, 2, 4, 8 and the same widths, both robots, and against
+             K chained K1 launches.
 4. train   — `wheeledlab_torch.rl.runner.train` for 3 iterations at full
              width (1024 envs, 128 steps, 5 epochs x 4 minibatches): on
              RSS_DRIFT_CONFIG, where K1 must carry every env step (384
-             launches), and on RSS_ELEV_CONFIG (obs 689), where K3 must (384
-             launches); no other kernel may launch.
+             launches); on RSS_DRIFT_CONFIG with WHEELEDLAB_KERNEL_RNG=1,
+             where K4 must (384 launches, 0 of K1); and on RSS_ELEV_CONFIG
+             (obs 689), where K3 must (384 launches); no other kernel may
+             launch.
 5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
              its play variant for 200 steps at 16 envs through the generic
              step, where K2 must carry every step (200 launches).
-6. timing  — each kernel's time with CUDA events (eager and as a CUDA
-             graph) beside its plain version's and the card's bound.
+6. scripts — `scripts.check_kernel_rng` (K5b; must pass),
+             `scripts.limiter_probe` at 16384 envs, K = 1, 2, 4, 8, with a
+             0.5 s window (K5a carries every call) and `scripts.mppi_demo`
+             at 4096 samples, horizon 16, 20 steps (K1: 20 + 20 x 17
+             launches; finite rewards).
+7. timing  — each kernel's time with CUDA events (eager and as a CUDA
+             graph) beside its plain version's and the card's bound; K4
+             against K1 plus the `torch.rand` and `torch.randn` calls that
+             feed it, K5b against those two calls alone.
 
 Every launch counter is set to 0 just before a path is driven and read just
 after. It imports nothing of JAX. The last line is the result object.
@@ -72,7 +91,25 @@ FLAT_SUBSTEP_OPS = 738
 # the 3-D slip velocities 4 and the normal in the force 9) plus 22 for the
 # steered wheels' heading (16 flat, 6 for its z row).
 HF_SUBSTEP_OPS = 39 + 38 + 129 + 4 * 210 + 22
+# Of OPS_PER_ENV, the operations of the observation and info blocks, which
+# the K-step rollout (K5a) does not compute: roll, pitch and yaw 18 + 16 + 18
+# (their arguments 9, 4 and 9; atan2_approx 9, asin_approx 12), two
+# world->body rotations 2 x 54, the last-action rows 2, noise on 12 rows 24,
+# the slip metric 1.
+OBS_OPS = 187
+# Integer operations of the in-kernel generator per env: a Philox4x32-10
+# call is 10 rounds of 2 wide and 2 low multiplies, 4 xors and 2 adds; each
+# draw used is a shift, a mask, a convert and a multiply. K4 with noise on
+# makes 10 calls and uses 34 draws, K5b 11 calls and 40 draws. A Box-Muller
+# normal is 6 float operations (log, sqrt, cos and 3 multiplies). They are
+# counted at the float32 rate, the only rate outside the tensor cores that
+# the bound's table holds.
+K4_RNG_OPS = 10 * 100 + 34 * 4 + 12 * 6
+K5B_OPS = 11 * 100 + 40 * 4 + 14 * 6
 TIMING_WINDOW_S = 2.0
+K4_REPLACES = "wheeledlab_tpu/tasks/drift/fused.py:512"
+K5A_REPLACES = "scripts/limiter_probe.py:80"
+K5B_REPLACES = "scripts/check_kernel_rng.py:50"
 K2_REPLACES = "wheeledlab_tpu/ops/pallas_substep.py:53"
 K3_REPLACES = "wheeledlab_tpu/ops/pallas_substep_hf.py:60"
 
@@ -116,10 +153,11 @@ def build_phase():
     return registers
 
 
-def step_inputs(robot, b, seed, device):
+def step_inputs(robot, b, seed, device, **task_kw):
     """Random but realistic inputs of one fused drift step, made with numpy
     from `seed`: states all over and beyond the track, DR'd params, step
-    counts at the time limit and push timers about to fire."""
+    counts at the time limit and push timers about to fire. `task_kw`
+    overrides fields of the task config (e.g. enable_corruption)."""
     import numpy as np
     import torch
 
@@ -131,7 +169,7 @@ def step_inputs(robot, b, seed, device):
     )
 
     rng = np.random.default_rng(seed)
-    task_cfg = DriftTaskCfg(num_envs=b, robot=robot)
+    task_cfg = DriftTaskCfg(num_envs=b, robot=robot, **task_kw)
     task = make_drift_task(task_cfg)
     cfg = FusedDriftConsts(task_cfg, task.cfg)
     gen = torch.Generator().manual_seed(seed)
@@ -192,14 +230,19 @@ def kernel_step(cfg, x):
     return fused_drift_step(cfg=cfg, **x)
 
 
-def compare(got, want):
-    """Agreement of the 7 outputs over every env: returns (max |kernel -
-    plain| of the float outputs, number of envs beyond FLOAT_TOL or with an
+STEP_OUTPUTS = ("state", "obs", "out", "step_count", "timers", "ep_return",
+                "ep_len")
+MULTI_OUTPUTS = ("state", "step_count", "timers", "ep_return", "ep_len")
+
+
+def compare_mask(got, want, names=STEP_OUTPUTS):
+    """Agreement of the outputs over every env: returns (max |got - want| of
+    the float outputs, (B,) mask of the envs beyond FLOAT_TOL or with an
     integer that differs)."""
     import torch
 
-    names = ("state", "obs", "out", "step_count", "timers", "ep_return",
-             "ep_len")
+    if len(got) != len(names) or len(want) != len(names):
+        raise AssertionError(f"expected {len(names)} outputs")
     b = got[0].shape[1]
     bad = torch.zeros(b, dtype=torch.bool, device=got[0].device)
     max_err = 0.0
@@ -216,6 +259,13 @@ def compare(got, want):
             tol = FLOAT_TOL["atol"] + FLOAT_TOL["rtol"] * w.abs()
             bad |= (err > tol).any(0)
             max_err = max(max_err, err.max().item())
+    return max_err, bad
+
+
+def compare(got, want, names=STEP_OUTPUTS):
+    """`compare_mask` with the mask counted: (max error, number of envs
+    beyond FLOAT_TOL or with an integer that differs)."""
+    max_err, bad = compare_mask(got, want, names)
     return max_err, int(bad.sum())
 
 
@@ -387,19 +437,198 @@ def physics_phase(device):
     return errs, cases
 
 
+def envs_not_bit_equal(got, want):
+    """Number of envs in which any output differs in any bit."""
+    import torch
+
+    bad = torch.zeros(got[0].shape[1], dtype=torch.bool, device=got[0].device)
+    for g, w in zip(got, want):
+        bad |= (g != w).any(0)
+    return int(bad.sum())
+
+
+def without_rows(x):
+    return {k: v for k, v in x.items() if k not in ("uniforms", "normals")}
+
+
+def plain_step_krng(cfg, x, seed):
+    """The plain version of K4: the Philox rows, then the plain step."""
+    from wheeledlab_torch.ops.kernel_rng import philox_blocks
+
+    b = x["state"].shape[1]
+    uniforms, normals = philox_blocks(seed, b, cfg.enable_corruption)
+    return plain_step(cfg, {**x, "uniforms": uniforms, "normals": normals})
+
+
+def multi_inputs(x, k, seed):
+    """The inputs of `k` chained steps: `step_inputs`' state, params and
+    counters with `k` stacked blocks of actions, uniforms and normals made
+    with numpy from `seed`."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.tasks.drift.fused import NUM_UNIFORM, OBS_ROWS
+
+    rng = np.random.default_rng(seed)
+    b = x["state"].shape[1]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                    device=x["state"].device)
+    y = {n: v for n, v in without_rows(x).items() if n != "action_rows"}
+    y["actions"] = f32(rng.normal(0, 1, (2 * k, b)))
+    y["uniforms"] = f32(rng.random((NUM_UNIFORM * k, b)))
+    y["normals"] = f32(rng.standard_normal((OBS_ROWS * k, b)))
+    return y
+
+
+def chained_k1(cfg, y, k):
+    """`k` launches of K1 on the rows that step i of K5a reads, state and
+    counters chained through; returns K5a's five outputs."""
+    from wheeledlab_torch.tasks.drift.fused import (
+        NUM_UNIFORM, OBS_ROWS, fused_drift_step,
+    )
+
+    x = {n: y[n] for n in ("weights", "poses", "state", "params",
+                           "step_count", "timers", "ep_return", "ep_len")}
+    for i in range(k):
+        res = fused_drift_step(
+            cfg=cfg, action_rows=y["actions"][2 * i:2 * i + 2],
+            uniforms=y["uniforms"][NUM_UNIFORM * i:NUM_UNIFORM * (i + 1)],
+            normals=y["normals"][OBS_ROWS * i:OBS_ROWS * (i + 1)], **x)
+        x.update(state=res[0], step_count=res[3], timers=res[4],
+                 ep_return=res[5], ep_len=res[6])
+    return tuple(x[n] for n in MULTI_OUTPUTS)
+
+
+def rng_kernel_phase(device, cases):
+    """K5b, K4 and K5a against their plain versions, and against K1 where
+    the two kernels must compute the same thing. Every case is checked and
+    printed before a disagreement raises."""
+    import torch
+
+    from wheeledlab_torch.ops.kernel_rng import philox_blocks, rng_blocks
+    from wheeledlab_torch.ops.multi_step import multi_step, multi_step_rows
+    from wheeledlab_torch.tasks.drift.fused import fused_drift_step_krng
+
+    phase("kernel (K4, K5a, K5b)")
+    errs = {"K4": 0.0, "K5a": 0.0, "K5b": 0.0}
+    kept, failures = {}, []
+
+    # K5b: the words bit for bit (a uniform is its word's 24 bits, exactly),
+    # the normals within tolerance
+    for b in (4096, 1000, 16):
+        for s in (1234, 99):
+            seed = torch.tensor([s], dtype=torch.int32, device=device)
+            got_u, got_n = rng_blocks(seed, b)
+            torch.cuda.synchronize()
+            want_u, want_n = philox_blocks(seed, b)
+            words_off = int((got_u != want_u).sum())
+            err, bad = compare_rows(got_n, want_n)
+            print(f"K5b B={b} seed {s}: uniform words that differ "
+                  f"{words_off}, normals max_abs_err {err:.3e}, envs beyond "
+                  f"tolerance {bad}, normals bit-equal "
+                  f"{bool((got_n == want_n).all())}", flush=True)
+            errs["K5b"] = max(errs["K5b"], err)
+            if words_off or bad:
+                failures.append(f"K5b B={b} seed {s}: {words_off} words, "
+                                f"{bad} envs")
+            kept[("K5b", b)] = seed
+
+    # K4: against Philox rows + the plain step, and against K1 fed K5b's rows
+    for robot in ("mushr", "f1tenth"):
+        for b in (16384, 1024, 1000):
+            for noise in (True, False):
+                if noise:
+                    cfg, x = cases[(robot, b)]
+                else:
+                    cfg, x = step_inputs(robot, b, seed=b + len(robot),
+                                         device=device,
+                                         enable_corruption=False)
+                seed = torch.tensor([b + 7 * noise], dtype=torch.int32,
+                                    device=device)
+                z = without_rows(x)
+                got = fused_drift_step_krng(cfg=cfg, seed=seed, **z)
+                torch.cuda.synchronize()
+                want = plain_step_krng(cfg, x, seed)
+                err, flipped = compare(got, want)
+                uniforms, normals = rng_blocks(seed, b)
+                via_k1 = kernel_step(cfg, {**z, "uniforms": uniforms,
+                                           "normals": normals})
+                differ = envs_not_bit_equal(got, via_k1)
+                resets = int(want[2][1].sum())
+                print(f"K4 {robot} B={b} noise {noise}: max_abs_err "
+                      f"{err:.3e}, envs beyond tolerance {flipped}, resets "
+                      f"{resets}; envs not bit-equal to K1 fed K5b's rows "
+                      f"{differ}", flush=True)
+                errs["K4"] = max(errs["K4"], err)
+                if flipped or differ:
+                    failures.append(f"K4 {robot} B={b} noise {noise}: "
+                                    f"{flipped} beyond, {differ} not equal "
+                                    f"to K1")
+                if resets == 0 or int(want[2][2].sum()) == 0:
+                    raise AssertionError("inputs fired no reset or time-out")
+                kept[("K4", robot, b, noise)] = (cfg, z, seed)
+
+    # K5a: against K chained plain steps (the check), and against K chained
+    # K1 launches. K5a is built without FMA contraction and K1 with it, so
+    # the two cannot agree bit for bit; over several steps K1's own rounding
+    # can take an env out of the tolerance against the plain version. An env
+    # in which K5a and the K1 chain disagree while the K1 chain agrees with
+    # the plain version is a fault of K5a's loop or slicing.
+    for robot in ("mushr", "f1tenth"):
+        for b in (16384, 1024, 1000):
+            cfg, x = cases[(robot, b)]
+            for k in (1, 2, 4, 8):
+                y = multi_inputs(x, k, seed=100 * k + b)
+                got = multi_step(cfg=cfg, k=k, **y)
+                torch.cuda.synchronize()
+                want = multi_step_rows(cfg=cfg, k=k, **y)
+                err, flipped = compare(got, want, MULTI_OUTPUTS)
+                chain = chained_k1(cfg, y, k)
+                chain_err, off_chain = compare_mask(got, chain,
+                                                    MULTI_OUTPUTS)
+                _, chain_off_plain = compare_mask(chain, want, MULTI_OUTPUTS)
+                unexplained = int((off_chain & ~chain_off_plain).sum())
+                print(f"K5a {robot} B={b} K={k}: max_abs_err {err:.3e}, "
+                      f"envs beyond tolerance {flipped}, envs not bit-equal "
+                      f"{envs_not_bit_equal(got, want)}; against {k} chained "
+                      f"K1 "
+                      f"launches max_abs_err {chain_err:.3e}, envs beyond "
+                      f"{int(off_chain.sum())}, of which the K1 chain "
+                      f"agrees with the plain version in {unexplained}",
+                      flush=True)
+                errs["K5a"] = max(errs["K5a"], err)
+                if flipped or unexplained:
+                    failures.append(f"K5a {robot} B={b} K={k}: {flipped} "
+                                    f"beyond, {unexplained} off the K1 "
+                                    f"chain alone")
+                kept[("K5a", robot, b, k)] = (cfg, y)
+    if failures:
+        raise AssertionError("disagreements: " + "; ".join(failures))
+    return errs, kept
+
+
+NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
+
+
 def reset_launches():
-    from wheeledlab_torch.ops import physics_step, physics_step_hf
+    from wheeledlab_torch.ops import (
+        kernel_rng, multi_step, physics_step, physics_step_hf,
+    )
     from wheeledlab_torch.tasks.drift import fused
 
     fused.LAUNCHES = physics_step.LAUNCHES = physics_step_hf.LAUNCHES = 0
+    fused.LAUNCHES_KRNG = multi_step.LAUNCHES = kernel_rng.LAUNCHES = 0
 
 
 def read_launches():
-    from wheeledlab_torch.ops import physics_step, physics_step_hf
+    from wheeledlab_torch.ops import (
+        kernel_rng, multi_step, physics_step, physics_step_hf,
+    )
     from wheeledlab_torch.tasks.drift import fused
 
     return {"K1": fused.LAUNCHES, "K2": physics_step.LAUNCHES,
-            "K3": physics_step_hf.LAUNCHES}
+            "K3": physics_step_hf.LAUNCHES, "K4": fused.LAUNCHES_KRNG,
+            "K5a": multi_step.LAUNCHES, "K5b": kernel_rng.LAUNCHES}
 
 
 def check_launches(path, got, want):
@@ -434,8 +663,7 @@ def train_run(device, logs, config, run_name, obs_dim, kernel):
     state, last = train(cfg)
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"K1": 0, "K2": 0, "K3": 0}
-    want[kernel] = iters * cfg.agent.num_steps_per_env
+    want = {**NO_LAUNCHES, kernel: iters * cfg.agent.num_steps_per_env}
     check_launches(config, launches, want)
     with open(os.path.join(logs, run_name, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -463,8 +691,14 @@ def train_run(device, logs, config, run_name, obs_dim, kernel):
 def train_phase(device, logs):
     phase("train")
     drift = train_run(device, logs, "RSS_DRIFT_CONFIG", "smoke", 14, "K1")
+    # the opt-in route: the variable is read when the env is built
+    os.environ["WHEELEDLAB_KERNEL_RNG"] = "1"
+    try:
+        krng = train_run(device, logs, "RSS_DRIFT_CONFIG", "krng", 14, "K4")
+    finally:
+        del os.environ["WHEELEDLAB_KERNEL_RNG"]
     elev = train_run(device, logs, "RSS_ELEV_CONFIG", "elev", 689, "K3")
-    return drift, elev
+    return drift, krng, elev
 
 
 def play_phase(logs):
@@ -482,7 +716,7 @@ def play_phase(logs):
                          str(steps), "--num-envs", str(envs)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check_launches("play", read_launches(), {"K1": 0, "K2": steps, "K3": 0})
+    check_launches("play", read_launches(), {**NO_LAUNCHES, "K2": steps})
     npz = np.load(os.path.join(logs, "smoke", "play", "smoke-rollouts.npz"))
     keys = {"observations", "actions", "positions", "yaws", "rewards",
             "commands"}
@@ -497,6 +731,45 @@ def play_phase(logs):
     print(f"play: {steps} steps x {envs} envs in {wall:.2f} s; {saved}",
           flush=True)
     return steps
+
+
+def script_phase():
+    """The three scripts through their `main`, as a user runs them (on the
+    card by default). Returns the launches of K5b, K5a and K1 and the probe's
+    rows."""
+    from wheeledlab_torch.scripts import (
+        check_kernel_rng, limiter_probe, mppi_demo,
+    )
+
+    phase("scripts")
+    reset_launches()
+    if check_kernel_rng.main([]) != 0:
+        raise AssertionError("the kernel RNG check failed")
+    k5b = read_launches()
+    check_launches("check_kernel_rng", k5b, {**NO_LAUNCHES, "K5b": 2})
+
+    reset_launches()
+    rows = limiter_probe.main(["--window", "0.5"])
+    k5a = read_launches()
+    if ([(r["k"], r["mode"]) for r in rows]
+            != [(k, m) for k in (1, 2, 4, 8) for m in ("eager", "graph")]
+            or any(r["num_envs"] != 16384 for r in rows)):
+        raise AssertionError(f"probe rows {rows}")
+    check_launches("limiter_probe", k5a, {
+        **NO_LAUNCHES, "K5a": sum(r["launches"] for r in rows)})
+
+    reset_launches()
+    steps, horizon = 20, 16
+    demo = mppi_demo.main(["--samples", "4096", "--horizon", str(horizon),
+                           "--steps", str(steps)])
+    k1 = read_launches()
+    check_launches("mppi_demo", k1, {
+        **NO_LAUNCHES, "K1": steps + steps * (horizon + 1)})
+    for key in ("mppi/reward_mean", "nominal_only/reward_mean",
+                "mppi/speed_mean", "mppi/slip_deg_mean"):
+        if not math.isfinite(demo[key]):
+            raise AssertionError(f"mppi_demo: {key} = {demo[key]}")
+    return k5b["K5b"], k5a["K5a"], k1["K1"], rows
 
 
 def timed(fn, window_s=TIMING_WINDOW_S, min_calls=4):
@@ -536,12 +809,15 @@ def graphed(fn, per_graph=20):
     return timed(g.replay) / per_graph
 
 
-def step_bytes(cfg, x):
+def step_bytes(cfg, x, streamed=True):
     """Bytes one fused step must move on these inputs: each element the
     kernel reads, once, and each element it writes, once. The uniform rows of
     push components whose range is zero are never read, nor the normal rows
     whose noise std is zero (nor any, with corruption off); of the pose table
-    only x, y and yaw of the rows that the spawn indices pick."""
+    only x, y and yaw of the rows that the spawn indices pick. With
+    `streamed` off the random rows are drawn in the kernel (K4): one seed
+    word is read in their place; `x["uniforms"]` then holds the rows the
+    kernel draws."""
     import torch
 
     from wheeledlab_torch.sim.soa import NUM_PARAM, NUM_STATE
@@ -555,6 +831,8 @@ def step_bytes(cfg, x):
         for _, _, ranges in cfg.pushes)
     normal_rows = (sum(s != 0.0 for s in _OBS_STD)
                    if cfg.enable_corruption else 0)
+    if not streamed:
+        uniform_rows = normal_rows = 0
     # state, params, actions, uniforms, normals, step count, timers, return,
     # length
     words_in = (NUM_STATE + NUM_PARAM + 2 + uniform_rows + normal_rows + 1
@@ -563,8 +841,27 @@ def step_bytes(cfg, x):
     words_out = NUM_STATE + OBS_ROWS + NUM_OUT + 1 + cfg.n_push + 1 + 1
     idx = torch.clamp((x["uniforms"][U_SPAWN] * cfg.num_reset_points)
                       .to(torch.int32), max=cfg.num_reset_points - 1)
-    table_words = x["weights"].numel() + 3 * idx.unique().numel()
+    table_words = (x["weights"].numel() + 3 * idx.unique().numel()
+                   + (0 if streamed else 1))
     return 4 * ((words_in + words_out) * b + table_words)
+
+
+def multi_bytes(cfg, y, k):
+    """Bytes `k` resident steps must move: state, params and counters once
+    in and once out, and per step the action rows and the uniform rows the
+    step reads (no observation is made, so no normal row is read); of the
+    pose table at most x, y and yaw of every row."""
+    from wheeledlab_torch.sim.soa import NUM_PARAM, NUM_STATE
+
+    b = y["state"].shape[1]
+    uniform_rows = 4 + sum(
+        1 + sum(hi != lo or lo != 0.0 for lo, hi in ranges)
+        for _, _, ranges in cfg.pushes)
+    counters = 1 + cfg.n_push + 1 + 1
+    words = (NUM_STATE + NUM_PARAM + counters + k * (2 + uniform_rows)
+             + NUM_STATE + counters)
+    table_words = y["weights"].numel() + 3 * cfg.num_reset_points
+    return 4 * (words * b + table_words)
 
 
 def bound(nbytes, ops):
@@ -582,6 +879,115 @@ def timing_row(name, b, kernel, plain, nbytes, ops, card, **extra):
            "ops": ops, "card": card}
     print(json.dumps(row), flush=True)
     return row
+
+
+def rng_calls(b, noise=True):
+    """The two PyTorch calls that make K1's random rows, as the env's step
+    makes them (here from the default generator, which a CUDA graph can
+    capture)."""
+    import torch
+
+    def draw():
+        uniforms = torch.rand((12, b), device="cuda")
+        normals = (torch.randn((14, b), device="cuda") if noise
+                   else torch.zeros((14, b), device="cuda"))
+        return uniforms, normals
+
+    return draw
+
+
+def standing_start_row(cases, b, card):
+    """K1's device time on the state an env starts from (every car standing
+    on the track) beside its time on `step_inputs`' moving cars: the step's
+    time depends on its data."""
+    import torch
+
+    from wheeledlab_torch.tasks.drift.task import DriftTaskCfg, make_drift_env
+
+    cfg, x = cases[("mushr", b)]
+    env = make_drift_env(DriftTaskCfg(num_envs=b), device="cuda", seed=0)
+    state, _ = env.reset()
+    standing = {**x, "state": state.vehicle_mem,
+                "params": state.packed_params,
+                "step_count": state.step_count[None],
+                "timers": state.push_timers,
+                "ep_return": state.ep_return[None],
+                "ep_len": state.ep_len[None]}
+    row = {"name": "fused_drift_step, standing start", "envs": b,
+           "graph_ms": graphed(lambda: kernel_step(cfg, standing)),
+           "moving_graph_ms": graphed(lambda: kernel_step(cfg, x)),
+           "card": card}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def rng_timing_phase(cases, kept, card):
+    """Timing rows of K4, K5a (K = 8) and K5b, and the two comparisons: K4
+    against K1 plus the `torch.rand` and `torch.randn` calls that feed it,
+    K5b against those two calls alone (the same distributions, not the same
+    bits)."""
+    from wheeledlab_torch.ops.kernel_rng import philox_blocks, rng_blocks
+    from wheeledlab_torch.ops.multi_step import multi_step, multi_step_rows
+    from wheeledlab_torch.tasks.drift.fused import fused_drift_step_krng
+
+    phase("timing (K4, K5a, K5b)")
+    rows = {}
+    for b in (16384, 1024):
+        cfg, z, seed = kept[("K4", "mushr", b, True)]
+        _, x = cases[("mushr", b)]
+        drawn = {**x, "uniforms": philox_blocks(seed, b)[0]}
+        row = timing_row(
+            "fused_drift_step_krng", b,
+            lambda: fused_drift_step_krng(cfg=cfg, seed=seed, **z),
+            lambda: plain_step_krng(cfg, x, seed),
+            step_bytes(cfg, drawn, streamed=False),
+            (OPS_PER_ENV + K4_RNG_OPS) * b, card)
+        # the question K4 answers: K1 and the two calls that make its rows
+        draw = rng_calls(b)
+
+        def k1_with_rng():
+            uniforms, normals = draw()
+            return kernel_step(cfg, {**z, "uniforms": uniforms,
+                                     "normals": normals})
+
+        row["k1_plus_rng_ms"] = timed(k1_with_rng)
+        row["k1_plus_rng_graph_ms"] = graphed(k1_with_rng)
+        print(json.dumps({"name": "K1 + torch.rand + torch.randn", "envs": b,
+                          "ms": row["k1_plus_rng_ms"],
+                          "graph_ms": row["k1_plus_rng_graph_ms"],
+                          "k4_ms": row["ms"], "k4_graph_ms": row["graph_ms"],
+                          "card": card}), flush=True)
+        rows[("K4", b)] = row
+
+        k = 8
+        cfg, y = kept[("K5a", "mushr", b, k)]
+        row = timing_row(
+            "multi_step", b, lambda: multi_step(cfg=cfg, k=k, **y),
+            lambda: multi_step_rows(cfg=cfg, k=k, **y),
+            multi_bytes(cfg, y, k), k * (OPS_PER_ENV - OBS_OPS) * b, card,
+            k=k)
+        row["ms_per_control_step"] = row["ms"] / k
+        row["graph_ms_per_control_step"] = row["graph_ms"] / k
+        print(json.dumps({"name": "multi_step per control step", "envs": b,
+                          "k": k, "ms": row["ms_per_control_step"],
+                          "graph_ms": row["graph_ms_per_control_step"],
+                          "card": card}), flush=True)
+        rows[("K5a", b)] = row
+    for b in (4096, 16384):
+        seed = kept[("K5b", 4096)]
+        row = timing_row(
+            "rng_blocks", b, lambda: rng_blocks(seed, b),
+            lambda: philox_blocks(seed, b), 4 * (1 + 26 * b), K5B_OPS * b,
+            card)
+        draw = rng_calls(b)
+        row["library_ms"] = timed(draw)
+        row["library_graph_ms"] = graphed(draw)
+        print(json.dumps({"name": "torch.rand (12, B) + torch.randn (14, B)",
+                          "envs": b, "ms": row["library_ms"],
+                          "graph_ms": row["library_graph_ms"],
+                          "card": card}), flush=True)
+        rows[("K5b", b)] = row
+    return rows
 
 
 def timing_phase(cases, phys_cases, card):
@@ -628,7 +1034,8 @@ def kernel_line(name, source, replaces, launches, max_err, rows, main_b,
         "replaces": replaces, "launches": launches, "max_abs_err": max_err,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": None, "envs": main_b, "graph_ms": main["graph_ms"],
+        "library_ms": main.get("library_ms"), "envs": main_b,
+        "graph_ms": main["graph_ms"],
         f"ms_{other_b}": other["ms"], f"graph_ms_{other_b}": other["graph_ms"],
         f"plain_ms_{other_b}": other["plain_ms"],
         f"bound_ms_{other_b}": other["bound_ms"], "ptxas": registers,
@@ -643,18 +1050,27 @@ def main():
     registers = build_phase()
     max_err, cases = kernel_phase(device)
     phys_err, phys_cases = physics_phase(device)
+    rng_err, kept = rng_kernel_phase(device, cases)
     with tempfile.TemporaryDirectory() as logs:
-        (k1_launches, drift_ms), (k3_launches, elev_ms) = train_phase(
-            device, logs)
+        ((k1_launches, drift_ms), (k4_launches, krng_ms),
+         (k3_launches, elev_ms)) = train_phase(device, logs)
         k2_launches = play_phase(logs)
+    k5b_launches, k5a_launches, mppi_launches, probe = script_phase()
     timing = timing_phase(cases, phys_cases, card)
+    timing.update(rng_timing_phase(cases, kept, card))
+    standing = {b: standing_start_row(cases, b, card) for b in (1024, 16384)}
     k = lambda name: {b: r for (n, b), r in timing.items() if n == name}
+    extra = lambda row, *keys: {key: row[key] for key in keys}
     kernels = [
         kernel_line("fused_drift_step", "wheeledlab_torch/csrc/fused_drift.cu",
                     "wheeledlab_tpu/tasks/drift/fused.py:488", k1_launches,
                     max_err, k("K1"), 1024, 16384,
                     registers.get("fused_drift"),
-                    train_iteration_ms=drift_ms),
+                    train_iteration_ms=drift_ms,
+                    mppi_demo_launches=mppi_launches,
+                    standing_start_graph_ms=standing[1024]["graph_ms"],
+                    standing_start_graph_ms_16384=standing[16384][
+                        "graph_ms"]),
         kernel_line("physics_step", "wheeledlab_torch/csrc/physics_step.cu",
                     K2_REPLACES, k2_launches, phys_err["K2"], k("K2"), 16,
                     16384, registers.get("physics_step"),
@@ -667,6 +1083,31 @@ def main():
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
                     registers.get("physics_step_hf"),
                     train_iteration_ms=elev_ms),
+        kernel_line("fused_drift_step_krng",
+                    "wheeledlab_torch/csrc/fused_drift_krng.cu", K4_REPLACES,
+                    k4_launches, rng_err["K4"], k("K4"), 1024, 16384,
+                    registers.get("fused_drift_krng"),
+                    train_iteration_ms=krng_ms,
+                    **extra(k("K4")[1024], "k1_plus_rng_ms",
+                            "k1_plus_rng_graph_ms"),
+                    k1_plus_rng_ms_16384=k("K4")[16384]["k1_plus_rng_ms"],
+                    k1_plus_rng_graph_ms_16384=k("K4")[16384][
+                        "k1_plus_rng_graph_ms"]),
+        kernel_line("multi_step", "wheeledlab_torch/csrc/multi_step.cu",
+                    K5A_REPLACES, k5a_launches, rng_err["K5a"], k("K5a"),
+                    16384, 1024, registers.get("multi_step"), k=8,
+                    **extra(k("K5a")[16384], "ms_per_control_step",
+                            "graph_ms_per_control_step"),
+                    limiter_probe=probe),
+        kernel_line("rng_blocks", "wheeledlab_torch/csrc/rng_blocks.cu",
+                    K5B_REPLACES, k5b_launches, rng_err["K5b"], k("K5b"),
+                    4096, 16384, registers.get("rng_blocks"),
+                    library="torch.rand (12, B) + torch.randn (14, B): the "
+                            "same distributions, not the same bits",
+                    library_graph_ms=k("K5b")[4096]["library_graph_ms"],
+                    library_ms_16384=k("K5b")[16384]["library_ms"],
+                    library_graph_ms_16384=k("K5b")[16384][
+                        "library_graph_ms"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

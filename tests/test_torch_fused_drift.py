@@ -188,11 +188,13 @@ class TestKernelInterface:
     """The ctypes side of the kernel's C interface, checked against the CUDA
     source here (nothing compiles CUDA on the CPU)."""
 
-    SRC = os.path.join(os.path.dirname(tfused.__file__), "..", "..", "csrc",
-                       "fused_drift.cu")
+    CSRC = os.path.join(os.path.dirname(tfused.__file__), "..", "..", "csrc")
+    SRC = os.path.join(CSRC, "fused_drift.cu")
+    # the struct lives in the header that the drift kernels share
+    STRUCT_SRC = os.path.join(CSRC, "drift_step.cuh")
 
     def test_ctypes_struct_mirrors_cuda_struct(self):
-        src = open(self.SRC).read()
+        src = open(self.STRUCT_SRC).read()
         body = re.search(r"struct FusedDriftConsts \{(.*?)\};", src,
                          re.S).group(1)
         body = re.sub(r"//[^\n]*", "", body)

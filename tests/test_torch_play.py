@@ -168,12 +168,16 @@ class TestPlayCLI:
         assert out["observations"].shape == (5, 4, 689)
 
     def test_video_and_missing_cuda_raise(self, tmp_path):
-        with pytest.raises(NotImplementedError):
-            play.main(["--run", "x", "--logs-dir", str(tmp_path), "--video"])
+        """`--video` is accepted (the renderer is ported; a video is written
+        in tests/test_torch_drift_family.py): only the missing run stops
+        it. Without a CUDA device the default device raises."""
+        with pytest.raises(FileNotFoundError):
+            play.main(["--run", "x", "--logs-dir", str(tmp_path), "--video",
+                       "--device", "cpu"])
         if torch.cuda.is_available():
             return
         with pytest.raises(RuntimeError, match="CUDA"):
-            play.main(["--run", "x", "--logs-dir", str(tmp_path)])
+            play.main(["--run", "x", "--logs-dir", str(tmp_path), "--video"])
 
 
 if __name__ == "__main__":

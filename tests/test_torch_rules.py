@@ -1,9 +1,11 @@
-"""Rules of the port: `wheeledlab_torch` and `chip_smoke.py` never import JAX
-or the JAX package, and the entry points run on CUDA unless the caller asks
-for the CPU."""
+"""Rules of the port: `wheeledlab_torch` (its scripts included) and
+`chip_smoke.py` never import JAX or the JAX package, the entry points run on
+CUDA unless the caller asks for the CPU, and nothing but a tensor's device
+chooses between a kernel and its plain version."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -84,6 +86,51 @@ def test_default_device_is_cuda_without_fallback():
         assert cfg.device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):
             train(cfg)
+    from wheeledlab_torch.cli import export, play
+    from wheeledlab_torch.scripts import (
+        check_kernel_rng, limiter_probe, mppi_demo,
+    )
+
+    for main, argv in ((check_kernel_rng.main, []), (limiter_probe.main, []),
+                       (mppi_demo.main, ["--steps", "1"]),
+                       (play.main, ["--run", "none"]),
+                       (export.main, ["--run", "none"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+
+
+def test_scripts_are_modules_of_the_port():
+    mods = set(port_modules())
+    assert {"wheeledlab_torch.scripts.check_kernel_rng",
+            "wheeledlab_torch.scripts.limiter_probe",
+            "wheeledlab_torch.scripts.mppi_demo",
+            "wheeledlab_torch.cli.export", "wheeledlab_torch.envs.wrappers",
+            "wheeledlab_torch.render.topdown",
+            "wheeledlab_torch.ops.kernel_rng",
+            "wheeledlab_torch.ops.multi_step"} <= mods
+
+
+def test_no_switch_forces_a_plain_version():
+    """The port reads three environment variables, none of which chooses
+    between a kernel and its plain version: the in-kernel-RNG route (honoured
+    on both devices), the probe's width and the CUDA toolkit's place. A
+    wrapper takes its plain version only where `device.type == "cpu"`."""
+    read = set()
+    for path in port_sources():
+        with open(path) as f:
+            read |= set(re.findall(r'environ(?:\.get\(|\[)\s*"(\w+)"',
+                                   f.read()))
+    assert read == {"WHEELEDLAB_KERNEL_RNG", "PROBE_ENVS", "CUDA_HOME"}
+    wrappers = {"wheeledlab_torch/tasks/drift/fused.py": 2,
+                "wheeledlab_torch/ops/multi_step.py": 1,
+                "wheeledlab_torch/ops/kernel_rng.py": 1,
+                "wheeledlab_torch/ops/physics_step.py": 1,
+                "wheeledlab_torch/ops/physics_step_hf.py": 1}
+    for rel, count in wrappers.items():
+        with open(os.path.join(ROOT, rel)) as f:
+            src = f.read()
+        assert src.count('device.type == "cpu"') == count, rel
+        assert "is_available" not in src and "except" not in src, rel
 
 
 if __name__ == "__main__":

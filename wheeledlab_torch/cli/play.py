@@ -7,9 +7,9 @@ task's play variant, dump the rollouts and the task-success metrics.
 
 Writes <run>/play/<run>-rollouts.npz (observations, actions, positions,
 yaws, rewards, commands, stacked over steps) and <run>/play/
-play_metrics.json, with the reference's keys. Runs on CUDA unless
-`--device cpu` is given. `--video` raises until the top-down renderer is
-ported.
+play_metrics.json, with the reference's keys; with `--video` also a top-down
+video <run>/play/<run>.avi (or .mp4 / .npy, by the encoder installed). Runs
+on CUDA unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=500)
     p.add_argument("--num-envs", type=int, default=16)
     p.add_argument("--video", action="store_true",
-                   help="render a top-down video (not ported yet: raises)")
+                   help="render a top-down video of the rollouts")
     p.add_argument("--headless", action="store_true", help="compat no-op")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
@@ -65,10 +65,6 @@ def play_metrics(pos, yaw, rew, cmd, done, step_dt: float,
 
 def main(argv=None):
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    if args.video:
-        raise NotImplementedError(
-            "play videos need render/topdown.py, which is not ported yet")
-
     import torch
 
     from ..rl.networks import ActorCritic
@@ -133,6 +129,15 @@ def main(argv=None):
     with open(os.path.join(play_dir, "play_metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     print("play metrics:", json.dumps(metrics))
+
+    if args.video:
+        from ..render.topdown import render_task_frames, save_video
+
+        frames = render_task_frames(
+            env, saved["task_name"], traj["positions"][:, :, :2],
+            traj["yaws"], goals=traj["commands"][:, :, :2])
+        vid = save_video(frames, os.path.join(play_dir, f"{args.run}.avi"))
+        print(f"saved video to {vid}")
     return metrics
 
 

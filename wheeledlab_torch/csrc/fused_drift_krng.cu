@@ -1,0 +1,78 @@
+// Fused drift control step with its random rows drawn in the kernel, for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// `wheeledlab_tpu/tasks/drift/fused.py::fused_drift_pallas_krng` (body
+// `_kernel_krng`): `fused_drift.cu`'s step, but the 12 uniform and 14 normal
+// rows never exist in device memory. The kernel takes one int32 seed (read
+// through its device pointer, so no host read and safe inside a CUDA graph)
+// and draws each env's rows from Philox4x32-10 (`philox.cuh`): a draw depends
+// only on (seed, env index, draw index). Its plain PyTorch version, and the
+// oracle it is tested against word for word, is
+// `wheeledlab_torch/ops/kernel_rng.py::philox_blocks` followed by
+// `wheeledlab_torch/tasks/drift/fused.py::drift_step_rows`.
+//
+// Bound: against `fused_drift.cu` it reads 1 word of seed in place of the 22
+// random words per env that the step uses, so 74 words in and 55 out, 516
+// bytes per env: 8.5 MB at 16384 envs, about 2.5 us at the H100's 3.35 TB/s;
+// 0.53 MB, about 0.16 us, at 1024 envs. On top of the step's ~3400 float
+// operations it does 10 Philox calls per env (each 10 rounds of 2 wide
+// multiplies, 2 low multiplies, 4 xors and 2 adds: 1000 integer operations)
+// and 12 Box-Muller normals; both stay far below the card's rates, so bytes
+// bound it, and like `fused_drift.cu` it runs at the latency of one thread's
+// dependent chain.
+//
+// Design: `fused_drift.cu`'s (one thread per env, 67 rows in registers), with
+// `PhiloxRows` as the step's row source. Rows are drawn where the step reads
+// them, so the 4 rows it never reads cost nothing, and with observation noise
+// off only the 3 Philox calls of the uniform rows run.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "drift_step.cuh"
+#include "philox.cuh"
+
+namespace wl {
+
+__global__ void __launch_bounds__(128) fused_drift_krng_kernel(
+    const FusedDriftConsts c, const float* __restrict__ weights,
+    const float* __restrict__ poses, const float* __restrict__ state,
+    const float* __restrict__ params, const float* __restrict__ actions,
+    const int32_t* __restrict__ seed, const int32_t* __restrict__ step_count,
+    const int32_t* __restrict__ timers, const float* __restrict__ ep_return,
+    const int32_t* __restrict__ ep_len, float* __restrict__ state_out,
+    float* __restrict__ obs_out, float* __restrict__ out,
+    int32_t* __restrict__ step_out, int32_t* __restrict__ timers_out,
+    float* __restrict__ epret_out, int32_t* __restrict__ eplen_out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t n = static_cast<size_t>(B);
+  PhiloxRows rows(static_cast<uint32_t>(__ldg(seed)),
+                  static_cast<uint32_t>(b));
+  fused_step_thread(c, weights, poses, state, params, actions, rows,
+                    step_count, timers, ep_return, ep_len, state_out, obs_out,
+                    out, step_out, timers_out, epret_out, eplen_out, b, n);
+}
+
+}  // namespace wl
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success). Every
+// pointer is a device pointer: `seed` to one int32, the others to contiguous
+// (rows, B) blocks.
+extern "C" int fused_drift_krng_launch(
+    wl::FusedDriftConsts c, const float* weights, const float* poses,
+    const float* state, const float* params, const float* actions,
+    const int32_t* seed, const int32_t* step_count, const int32_t* timers,
+    const float* ep_return, const int32_t* ep_len, float* state_out,
+    float* obs_out, float* out, int32_t* step_out, int32_t* timers_out,
+    float* epret_out, int32_t* eplen_out, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  wl::fused_drift_krng_kernel<<<blocks, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      c, weights, poses, state, params, actions, seed, step_count, timers,
+      ep_return, ep_len, state_out, obs_out, out, step_out, timers_out,
+      epret_out, eplen_out, B);
+  return static_cast<int>(cudaGetLastError());
+}

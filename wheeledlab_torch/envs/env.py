@@ -136,6 +136,9 @@ class TaskModel(NamedTuple):
     fused_step: Optional[Callable] = None
     # ^ (env, EnvState, action) -> (EnvState, StepOutput), the generic
     # step's semantics in one kernel
+    render_grid: Optional[Tuple[np.ndarray, float]] = None
+    # ^ (grid (rows, cols), cell) background of the top-down renderer; None
+    # -> the drift oval
 
 
 @dataclasses.dataclass

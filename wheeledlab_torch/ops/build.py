@@ -27,8 +27,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # patch coordinate at a cell edge, or in a penetration near 0, switches the
 # terrain normal or the contact, and ten stiff substeps amplify it (80 of
 # 16384 envs disagreed, by up to 2.0, on an H100).
-SOURCE_FLAGS = {"physics_step_hf": ["--fmad=false"]}
-SOURCES = ("fused_drift", "physics_step", "physics_step_hf")
+#
+# K5a (the K-step rollout) likewise: with contraction, 1 of 16384 F1Tenth envs
+# left the tolerance after 4 chained steps (a wheel rate near zero; no switch
+# flipped), and so does a chain of 4 launches of the fused step, which keeps
+# contraction. Without it the rollout matches its plain version bit for bit.
+SOURCE_FLAGS = {"physics_step_hf": ["--fmad=false"],
+                "multi_step": ["--fmad=false"]}
+SOURCES = ("fused_drift", "physics_step", "physics_step_hf",
+           "fused_drift_krng", "multi_step", "rng_blocks")
 
 # ptxas resource reports of the builds made in this process, by library
 BUILD_LOGS = {}

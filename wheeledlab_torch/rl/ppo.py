@@ -101,6 +101,19 @@ def finalize_info_acc(acc: Dict[str, torch.Tensor], num_steps: int,
     return out
 
 
+def traj_captures(env_state: EnvState) -> Dict[str, torch.Tensor]:
+    """One step's trajectory capture of the first 8 envs, for the training
+    videos (the reference's `traj_captures`): position, yaw and goal."""
+    mem = env_state.vehicle_mem                     # (21, B) packed rows
+    qw, qx, qy, qz = mem[3, :8], mem[4, :8], mem[5, :8], mem[6, :8]
+    return {
+        "traj/pos": mem[0:3, :8].T,
+        "traj/yaw": torch.atan2(2 * (qw * qz + qx * qy),
+                                1 - 2 * (qy**2 + qz**2)),
+        "traj/cmd": env_state.command[:8, :2],
+    }
+
+
 @dataclasses.dataclass
 class TrainState:
     env_state: EnvState
@@ -138,9 +151,11 @@ class PPO:
     # ------------------------------------------------------------- rollout
 
     @torch.no_grad()
-    def rollout(self, state: TrainState):
+    def rollout(self, state: TrainState, capture_traj: bool = False):
         """Returns (env_state, obs, traj dict of time-major [T, B, ...]
-        tensors, info accumulators)."""
+        tensors, info accumulators). With `capture_traj` the dict also holds
+        the `traj/*` channels of `traj_captures`, [T, 8, ...], for a
+        video."""
         cfg, env = self.cfg, self.env
         t_len, n = cfg.num_steps_per_env, env.num_envs
         dev = env.device
@@ -155,6 +170,7 @@ class PPO:
             "std": torch.empty((t_len, n, env.action_dim), device=dev),
         }
         env_state, obs, acc = state.env_state, state.obs, None
+        captures = []
         for t in range(t_len):
             mean, std, value = self.model(obs)
             action = mean + std * torch.randn(
@@ -172,7 +188,11 @@ class PPO:
             if acc is None:
                 acc = init_info_acc(out.info)
             acc = accumulate_info(acc, out.info, out.done)
+            if capture_traj:
+                captures.append(traj_captures(env_state))
             obs = out.obs
+        for k in (captures[0] if captures else ()):
+            traj[k] = torch.stack([c[k] for c in captures])
         return env_state, obs, traj, acc
 
     # ----------------------------------------------------------------- GAE
@@ -283,10 +303,12 @@ class PPO:
 
     # ------------------------------------------------------ full iteration
 
-    def train_iteration(self, state: TrainState
+    def train_iteration(self, state: TrainState, capture_traj: bool = False
                         ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One PPO iteration. With `capture_traj` the metrics also carry the
+        rollout's `traj/*` channels ([T, 8, ...] tensors, not scalars)."""
         cfg = self.cfg
-        env_state, obs, traj, acc = self.rollout(state)
+        env_state, obs, traj, acc = self.rollout(state, capture_traj)
         with torch.no_grad():
             _, _, last_value = self.model(obs)
             _, returns, norm_adv = self.compute_gae(
@@ -315,6 +337,8 @@ class PPO:
                                    ).to(torch.float32),
         }
         metrics.update(finalize_info_acc(acc, cfg.num_steps_per_env, n_done))
+        metrics.update({k: v for k, v in traj.items()
+                        if k.startswith("traj/")})
         return TrainState(env_state=env_state, obs=obs,
                           iteration=state.iteration + 1), metrics
 

@@ -34,7 +34,7 @@ class LogCfg:
     log_every: int = 10
     no_checkpoints: bool = False
     checkpoint_every: int = 50       # reference save_interval=50
-    video: bool = False              # training videos: not ported (raises)
+    video: bool = False              # top-down training videos
     video_interval: int = 500
     video_length: int = 0
     video_resolution: tuple = ()
@@ -160,8 +160,6 @@ def _check_unported(run_cfg: RunConfig):
     if mode == "on":
         raise NotImplementedError(
             "multi-process training (train.distributed=on) is not ported yet")
-    if run_cfg.train.log.video:
-        raise NotImplementedError("training videos are not ported yet")
     if not run_cfg.train.log.no_wandb:
         raise NotImplementedError("the wandb sink is not ported yet")
 
@@ -208,6 +206,26 @@ def train(run_cfg: RunConfig, env=None, max_iterations: Optional[int] = None,
     return state, last_metrics
 
 
+def _write_video(run_cfg, env, run_dir, iteration, metrics):
+    """Render the rollout's first envs top-down into
+    `<run_dir>/videos/iter_<iteration>.*` and drop the `traj/*` channels
+    from `metrics` (the policy-view clip of camera tasks waits for the
+    visual task)."""
+    from ..render.topdown import render_task_frames, save_video
+
+    log_cfg = run_cfg.train.log
+    length = log_cfg.video_length or None          # 0 -> the full rollout
+    pos = metrics.pop("traj/pos").cpu().numpy()[:length, :, :2]
+    yaw = metrics.pop("traj/yaw").cpu().numpy()[:length]
+    cmd = metrics.pop("traj/cmd").cpu().numpy()[:length]
+    vid_dir = os.path.join(run_dir, "videos")
+    os.makedirs(vid_dir, exist_ok=True)
+    frames = render_task_frames(env, run_cfg.task_name, pos, yaw, cmd)
+    return save_video(frames, os.path.join(vid_dir, f"iter_{iteration}.avi"),
+                      resolution=log_cfg.video_resolution or None,
+                      crf=log_cfg.video_crf)
+
+
 def _train_loop(run_cfg, env, learner, state, logger, save_ckpts, n_iter,
                 run_dir, verbose):
     log_cfg = run_cfg.train.log
@@ -230,8 +248,15 @@ def _train_loop(run_cfg, env, learner, state, logger, save_ckpts, n_iter,
             profiler.stop()
             profiler.export_chrome_trace(os.path.join(run_dir, "trace.json"))
             profiler = None
+        want_video = (log_cfg.video and not log_cfg.test_mode
+                      and not log_cfg.no_log
+                      and (it + 1) % log_cfg.video_interval == 0)
         with timer.phase("iterate"):
-            state, metrics = learner.train_iteration(state)
+            state, metrics = learner.train_iteration(
+                state, capture_traj=want_video)
+        if want_video:
+            with timer.phase("video"):
+                _write_video(run_cfg, env, run_dir, it + 1, metrics)
         if (it + 1) % log_cfg.log_every == 0 or it == n_iter - 1:
             # ONE batched device->host copy of every metric
             with timer.phase("device_sync"):

@@ -6,20 +6,29 @@ time-out terminations -> the seven weighted drift reward terms -> episode
 return/length -> masked auto-reset with spawn sampling from the pose table ->
 post-reset observations with Gaussian noise.
 
-Three pieces, as for every kernel of the port:
+The pieces, as for every kernel of the port:
 
 - `drift_step_rows`: the plain PyTorch version on (rows, B) tensors. It
   follows the reference `drift_step_rows` line for line (including
   `tan = sin/cos` and the integer casts) and is both the CPU path and the
-  kernel's oracle.
-- `fused_drift_step`: the wrapper. CPU tensors go to `drift_step_rows`;
-  CUDA tensors launch the kernel of `csrc/fused_drift.cu` (built at first
-  use) or raise. It counts its kernel launches in `LAUNCHES`.
+  kernels' oracle.
+- `fused_drift_step`: the wrapper of the step with streamed random rows.
+  CPU tensors go to `drift_step_rows`; CUDA tensors launch the kernel of
+  `csrc/fused_drift.cu` (built at first use) or raise. It counts its kernel
+  launches in `LAUNCHES`. The kernel replaces
+  `wheeledlab_tpu/tasks/drift/fused.py::fused_drift_pallas`.
+- `fused_drift_step_krng`: the wrapper of the step that draws its random
+  rows itself from one int32 seed. CPU tensors run `ops/kernel_rng.py::
+  philox_blocks` and then `drift_step_rows`; CUDA tensors launch the kernel
+  of `csrc/fused_drift_krng.cu` or raise. It counts its launches in
+  `LAUNCHES_KRNG`. The kernel replaces `fused_drift_pallas_krng` there.
 - `make_fused_drift_step`: the env-facing closure that draws the per-step
-  random blocks, calls the wrapper and builds the info dict.
+  random blocks (or, with `WHEELEDLAB_KERNEL_RNG=1` in the environment when
+  the env is built, the per-step seed), calls the wrapper and builds the
+  info dict.
 
-The kernel replaces `wheeledlab_tpu/tasks/drift/fused.py::fused_drift_pallas`
-(the Pallas TPU kernel). See `csrc/fused_drift.cu` for its bound and design.
+See `csrc/fused_drift.cu` and `csrc/fused_drift_krng.cu` for the kernels'
+bounds and design, and `PERF.md` for their times.
 """
 
 from __future__ import annotations
@@ -27,11 +36,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math as pymath
+import os
 
 import numpy as np
 import torch
 
 from ...ops.checks import check_rows
+from ...ops.kernel_rng import check_seed, philox_blocks
+from ...utils.math import div
 from ...sim.soa import (
     NUM_PARAM, NUM_STATE, asin_approx, atan2_approx, substep_soa,
 )
@@ -67,8 +79,10 @@ MAX_PUSH = 2         # push events a kernel launch can carry
 REWARD_NAMES = ("side_slip", "vel", "progress", "tlgr", "turn_energy",
                 "cross_track", "term_pens")
 
-# Kernel launches made by `fused_drift_step` (CUDA tensors only).
+# Kernel launches made by `fused_drift_step` and by `fused_drift_step_krng`
+# (CUDA tensors only).
 LAUNCHES = 0
+LAUNCHES_KRNG = 0
 
 
 def _action_targets_rows(a0, a1, acfg):
@@ -91,7 +105,7 @@ def _action_targets_rows(a0, a1, acfg):
     tan_steering = torch.sin(st) / torch.cos(st)
     r = acfg.wheel_radius
     if acfg.drivetrain == "rwd":
-        tgt = v / r
+        tgt = div(v, r)
         zeros = torch.zeros_like(tgt)
         steer_t = torch.stack([tan_steering, tan_steering])
         wheel_t = torch.stack([tgt, tgt, zeros, zeros])
@@ -387,7 +401,7 @@ class FusedDriftConsts:
 
 
 class FusedDriftConstsC(ctypes.Structure):
-    """Mirror of `struct FusedDriftConsts` in csrc/fused_drift.cu (same
+    """Mirror of `struct FusedDriftConsts` in csrc/drift_step.cuh (same
     field order and types)."""
 
     _fields_ = [
@@ -420,16 +434,69 @@ class FusedDriftConstsC(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The ctypes launcher, built and loaded on first use."""
+def _kernel_fn(name: str, n_in: int):
+    """The ctypes launcher `<name>_launch` of `csrc/<name>.cu`, built and
+    loaded on first use: the constant block, `n_in` input and 7 output
+    pointers, the batch size, the stream."""
     from ...ops.build import load_library
 
-    lib = load_library("fused_drift")
-    fn = lib.fused_drift_launch
-    fn.argtypes = ([FusedDriftConstsC] + [ctypes.c_void_p] * 18
+    fn = getattr(load_library(name), f"{name}_launch")
+    fn.argtypes = ([FusedDriftConstsC] + [ctypes.c_void_p] * (n_in + 7)
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def check_step_inputs(cfg, weights, poses, state, params, action_rows,
+                      step_count, timers, ep_return, ep_len, action_k=1):
+    """Device, dtype, shape and contiguity of what every drift kernel takes;
+    `action_rows` holds `action_k` stacked (2, B) blocks."""
+    device = state.device
+    b = state.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    check_rows("weights", weights.view(1, -1), 1, NUM_TERMS, device)
+    check_rows("poses", poses, cfg.num_reset_points, 4, device)
+    for name, x, rows, dt in (
+            ("state", state, NUM_STATE, f32),
+            ("params", params, NUM_PARAM, f32),
+            ("action_rows", action_rows, 2 * action_k, f32),
+            ("step_count", step_count, 1, i32),
+            ("timers", timers, cfg.n_push, i32),
+            ("ep_return", ep_return, 1, f32), ("ep_len", ep_len, 1, i32)):
+        check_rows(name, x, rows, b, device, dt)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the drift step runs on cpu or cuda, not {device}")
+
+
+def _launch_step(name, cfg, ins, b, device):
+    """Allocate the 7 outputs of a fused step and launch `csrc/<name>.cu` on
+    the current stream; raises if the launch is refused."""
+    f32, i32 = torch.float32, torch.int32
+    outs = (torch.empty((NUM_STATE, b), dtype=f32, device=device),
+            torch.empty((OBS_ROWS, b), dtype=f32, device=device),
+            torch.empty((NUM_OUT, b), dtype=f32, device=device),
+            torch.empty((1, b), dtype=i32, device=device),
+            torch.empty((cfg.n_push, b), dtype=i32, device=device),
+            torch.empty((1, b), dtype=f32, device=device),
+            torch.empty((1, b), dtype=i32, device=device))
+    launch = _kernel_fn(name, len(ins))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = launch(cfg.c_struct, *(x.data_ptr() for x in ins + outs), b,
+                     stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return outs
+
+
+def _plain_step(cfg, weights, poses, state, params, action_rows, uniforms,
+                normals, step_count, timers, ep_return, ep_len):
+    """`drift_step_rows` in the wrappers' layout."""
+    nsr, obs, out, sc, tm, er, el = drift_step_rows(
+        state, params, action_rows[0], action_rows[1], uniforms, normals,
+        weights, poses, step_count[0], timers, ep_return[0], ep_len[0],
+        cfg=cfg)
+    return nsr, obs, out, sc[None], tm, er[None], el[None]
 
 
 def fused_drift_step(weights, poses, state, params, action_rows, uniforms,
@@ -447,50 +514,50 @@ def fused_drift_step(weights, poses, state, params, action_rows, uniforms,
     `drift_step_rows`; CUDA tensors launch the kernel, asynchronously on the
     current stream."""
     global LAUNCHES
-    device = state.device
-    b = state.shape[-1]
-    f32, i32 = torch.float32, torch.int32
-    check_rows("weights", weights.view(1, -1), 1, NUM_TERMS, device)
-    check_rows("poses", poses, cfg.num_reset_points, 4, device)
-    for name, x, rows, dt in (
-            ("state", state, NUM_STATE, f32),
-            ("params", params, NUM_PARAM, f32),
-            ("action_rows", action_rows, 2, f32),
-            ("uniforms", uniforms, NUM_UNIFORM, f32),
-            ("normals", normals, OBS_ROWS, f32),
-            ("step_count", step_count, 1, i32),
-            ("timers", timers, cfg.n_push, i32),
-            ("ep_return", ep_return, 1, f32), ("ep_len", ep_len, 1, i32)):
-        check_rows(name, x, rows, b, device, dt)
-
+    device, b = state.device, state.shape[-1]
+    check_step_inputs(cfg, weights, poses, state, params, action_rows,
+                      step_count, timers, ep_return, ep_len)
+    check_rows("uniforms", uniforms, NUM_UNIFORM, b, device)
+    check_rows("normals", normals, OBS_ROWS, b, device)
     if device.type == "cpu":
-        nsr, obs, out, sc, tm, er, el = drift_step_rows(
-            state, params, action_rows[0], action_rows[1], uniforms, normals,
-            weights, poses, step_count[0], timers, ep_return[0], ep_len[0],
-            cfg=cfg)
-        return nsr, obs, out, sc[None], tm, er[None], el[None]
-    if device.type != "cuda":
-        raise ValueError(
-            f"fused_drift_step runs on cpu or cuda, not {device}")
-
-    launch = _kernel_fn()
-    outs = (torch.empty((NUM_STATE, b), dtype=f32, device=device),
-            torch.empty((OBS_ROWS, b), dtype=f32, device=device),
-            torch.empty((NUM_OUT, b), dtype=f32, device=device),
-            torch.empty((1, b), dtype=i32, device=device),
-            torch.empty((cfg.n_push, b), dtype=i32, device=device),
-            torch.empty((1, b), dtype=f32, device=device),
-            torch.empty((1, b), dtype=i32, device=device))
-    ins = (weights, poses, state, params, action_rows, uniforms, normals,
-           step_count, timers, ep_return, ep_len)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(cfg.c_struct, *(x.data_ptr() for x in ins + outs), b,
-                     stream)
-    if err != 0:
-        raise RuntimeError(f"fused_drift kernel launch failed: CUDA error "
-                           f"{err}")
+        return _plain_step(cfg, weights, poses, state, params, action_rows,
+                           uniforms, normals, step_count, timers, ep_return,
+                           ep_len)
+    outs = _launch_step(
+        "fused_drift", cfg,
+        (weights, poses, state, params, action_rows, uniforms, normals,
+         step_count, timers, ep_return, ep_len), b, device)
     LAUNCHES += 1
+    return outs
+
+
+def fused_drift_step_krng(weights, poses, state, params, action_rows, seed,
+                          step_count, timers, ep_return, ep_len,
+                          cfg: FusedDriftConsts):
+    """`fused_drift_step` with the random rows drawn from `seed`, a (1,)
+    int32 tensor on the state's device — the counterpart of the reference
+    `fused_drift_pallas_krng`. The rows are those of `ops/kernel_rng.py::
+    philox_blocks(seed, B, cfg.enable_corruption)`. CPU tensors compute them
+    and run `drift_step_rows`; CUDA tensors launch the kernel of
+    `csrc/fused_drift_krng.cu`, which reads the seed through its pointer (no
+    host read) and draws the rows in registers."""
+    global LAUNCHES_KRNG
+    device, b = state.device, state.shape[-1]
+    check_step_inputs(cfg, weights, poses, state, params, action_rows,
+                      step_count, timers, ep_return, ep_len)
+    check_seed(seed)
+    if seed.device != device:
+        raise ValueError(f"seed is on {seed.device}, expected {device}")
+    if device.type == "cpu":
+        uniforms, normals = philox_blocks(seed, b, cfg.enable_corruption)
+        return _plain_step(cfg, weights, poses, state, params, action_rows,
+                           uniforms, normals, step_count, timers, ep_return,
+                           ep_len)
+    outs = _launch_step(
+        "fused_drift_krng", cfg,
+        (weights, poses, state, params, action_rows, seed, step_count,
+         timers, ep_return, ep_len), b, device)
+    LAUNCHES_KRNG += 1
     return outs
 
 
@@ -504,24 +571,40 @@ def make_fused_drift_step(task_cfg, env_cfg, ref_poses):
     cfg = FusedDriftConsts(task_cfg, env_cfg)
     poses_cpu = torch.as_tensor(np.asarray(ref_poses, np.float32))
     poses_on = {}
+    # Opt-in, read once: the step draws its random rows in the kernel from
+    # one seed per step (`fused_drift_step_krng`). The reference ignores the
+    # variable where its kernel cannot run (the CPU); the port honours it on
+    # both devices, CPU tensors taking the plain version.
+    kernel_rng = os.environ.get("WHEELEDLAB_KERNEL_RNG") == "1"
 
     def fused_step(env, state, action):
         n = env.num_envs
         dev = env.device
         if dev not in poses_on:
             poses_on[dev] = poses_cpu.to(dev)
-        uniforms = torch.rand((NUM_UNIFORM, n), generator=env.generator,
-                              device=dev)
-        normals = (torch.randn((OBS_ROWS, n), generator=env.generator,
-                               device=dev)
-                   if cfg.enable_corruption
-                   else torch.zeros((OBS_ROWS, n), device=dev))
-        (packed, obs_rows, out, step_count, timers, ep_return,
-         ep_len) = fused_drift_step(
-            state.reward_weights, poses_on[dev], state.vehicle_mem,
-            state.packed_params, action.T.contiguous(), uniforms, normals,
-            state.step_count[None], state.push_timers,
-            state.ep_return[None], state.ep_len[None], cfg)
+        if kernel_rng:
+            # one draw of the env's generator per step, so a checkpoint's
+            # generator state resumes a run exactly
+            seed = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32,
+                                 generator=env.generator, device=dev)
+            res = fused_drift_step_krng(
+                state.reward_weights, poses_on[dev], state.vehicle_mem,
+                state.packed_params, action.T.contiguous(), seed,
+                state.step_count[None], state.push_timers,
+                state.ep_return[None], state.ep_len[None], cfg)
+        else:
+            uniforms = torch.rand((NUM_UNIFORM, n), generator=env.generator,
+                                  device=dev)
+            normals = (torch.randn((OBS_ROWS, n), generator=env.generator,
+                                   device=dev)
+                       if cfg.enable_corruption
+                       else torch.zeros((OBS_ROWS, n), device=dev))
+            res = fused_drift_step(
+                state.reward_weights, poses_on[dev], state.vehicle_mem,
+                state.packed_params, action.T.contiguous(), uniforms,
+                normals, state.step_count[None], state.push_timers,
+                state.ep_return[None], state.ep_len[None], cfg)
+        packed, obs_rows, out, step_count, timers, ep_return, ep_len = res
 
         obs = obs_rows.T
         reward = out[O_REWARD]

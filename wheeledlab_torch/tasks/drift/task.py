@@ -11,7 +11,7 @@ physics is kernel K2; they report the `slip_deg` and `speed` metrics."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -164,11 +164,19 @@ def _uniform(g, shape, lo, hi, device):
     return torch.rand(shape, generator=g, device=device) * (hi - lo) + lo
 
 
-def make_drift_task(cfg: DriftTaskCfg) -> TaskModel:
-    # the pose table is a host constant drawn from the task seed
-    track_gen = torch.Generator().manual_seed(cfg.seed + 17)
-    ref_poses = reference_track_poses(
-        cfg, torch.rand((cfg.num_reset_points,), generator=track_gen))
+def make_drift_task(cfg: DriftTaskCfg,
+                    ref_poses: Optional[torch.Tensor] = None) -> TaskModel:
+    """The drift task. `ref_poses` replaces the (num_reset_points, 4) pose
+    table, which is otherwise a host constant drawn from the task seed (the
+    parity tests hand over the reference's table)."""
+    if ref_poses is None:
+        track_gen = torch.Generator().manual_seed(cfg.seed + 17)
+        ref_poses = reference_track_poses(
+            cfg, torch.rand((cfg.num_reset_points,), generator=track_gen))
+    ref_poses = torch.as_tensor(ref_poses, dtype=torch.float32).cpu()
+    if tuple(ref_poses.shape) != (cfg.num_reset_points, 4):
+        raise ValueError(f"ref_poses has shape {tuple(ref_poses.shape)}, "
+                         f"expected {(cfg.num_reset_points, 4)}")
 
     if cfg.robot == "mushr":
         base_params, action = MUSHR_SUS_2WD_CFG, MUSHR_RWD_ACTION
@@ -242,5 +250,7 @@ def make_drift_task(cfg: DriftTaskCfg) -> TaskModel:
 
 
 def make_drift_env(cfg: DriftTaskCfg = DriftTaskCfg(), device="cuda",
-                   seed: int = 0) -> WheeledEnv:
-    return WheeledEnv(make_drift_task(cfg), device=device, seed=seed)
+                   seed: int = 0,
+                   ref_poses: Optional[torch.Tensor] = None) -> WheeledEnv:
+    return WheeledEnv(make_drift_task(cfg, ref_poses), device=device,
+                      seed=seed)

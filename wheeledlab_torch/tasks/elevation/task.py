@@ -331,6 +331,7 @@ def make_elevation_task(cfg: ElevationTaskCfg, device="cpu",
         contact_atlas=contact_atlas,
         metric_fns={"goal_dist": goal_distance,
                     "ground_height": make_elevation_gain(contact_atlas)},
+        render_grid=(terrain.height.T.cpu().numpy(), float(terrain.cell)),
     )
 
 
