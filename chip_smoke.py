@@ -12,15 +12,21 @@ printing its final line:
              build time and each ptxas resource report.
 3. kernel  — hold each kernel against its plain PyTorch version on the
              card; every env must agree (K4, K5a, K5b: see below):
-             K1, the fused drift step (`drift_step_rows`), at 16384, 1024
-             and 1000 envs, for MuSHR and F1Tenth, with push events,
-             observation noise, resets and time-outs firing;
+             K1, the fused drift step (`drift_step_rows`), at 16384, 1024,
+             1000, 7 and 1 envs (the last three leave a warp partly empty
+             or a group count that is no multiple of 8), for MuSHR and
+             F1Tenth, with push events, observation noise, resets and
+             time-outs firing, and on the state an env starts from (every
+             car standing);
              K2, the flat physics step (the `substep_soa` loop), at 16384,
              1024, 1000 and 16 envs, decimation 4 and 20, both robots;
              K3, the heightfield physics step (the `substep_soa_hf` loop), at
-             16384, 1024 and 1000 envs, decimation 10, p = 12, with states
-             over the mounds of a generated terrain, wheels in and out of
-             contact, some envs airborne.
+             16384, 1024, 1000, 7 and 1 envs, decimation 10, p = 12, with
+             states over the mounds of a generated terrain, wheels in and
+             out of contact, some envs airborne; at 1024 envs with p = 30
+             (more shared memory than a block has by default) and with the
+             largest patch the wrapper takes (`MAX_P`); and on cars at rest
+             on the terrain. It must equal its plain version bit for bit.
              K5b, the Philox random blocks (`philox_blocks`), at 4096, 1000
              and 16 envs: the uniforms' 24-bit words bit for bit, the normals
              within tolerance;
@@ -47,9 +53,13 @@ printing its final line:
              at 4096 samples, horizon 16, 20 steps (K1: 20 + 20 x 17
              launches; finite rewards).
 7. timing  — each kernel's time with CUDA events (eager and as a CUDA
-             graph) beside its plain version's and the card's bound; K4
-             against K1 plus the `torch.rand` and `torch.randn` calls that
-             feed it, K5b against those two calls alone.
+             graph) beside its plain version's and the card's bound; K1 and
+             K3 beside their times before they gave an env to 4 lanes
+             (quoted from PERF.md; the run fails unless it is faster), with
+             registers, block size, blocks and warps per SM, and on standing
+             cars beside moving ones; K4 against K1 plus the `torch.rand`
+             and `torch.randn` calls that feed it, K5b against those two
+             calls alone.
 
 Every launch counter is set to 0 just before a path is driven and read just
 after. It imports nothing of JAX. The last line is the result object.
@@ -78,7 +88,9 @@ FP32_OPS_PER_S = 67e12
 # rotation 39, steering servo 38, rigid body 129) plus 423 for action map,
 # pushes, rewards, reset and observation. Each +, -, *, / and each sqrtf,
 # sinf, cosf, tanhf, floorf counts one; comparisons, selects, min/max, abs
-# and negation count none.
+# and negation count none. The kernels give an env to 4 lanes, which repeat
+# the rotation, the rigid body and the epilogue; the bound counts an env's
+# work once, whoever repeats it.
 OPS_PER_ENV = 4 * 738 + 423
 # One flat-ground substep (`substep.cuh::substep_flat`): 738, as above.
 FLAT_SUBSTEP_OPS = 738
@@ -106,7 +118,17 @@ OBS_OPS = 187
 # the bound's table holds.
 K4_RNG_OPS = 10 * 100 + 34 * 4 + 12 * 6
 K5B_OPS = 11 * 100 + 40 * 4 + 14 * 6
-TIMING_WINDOW_S = 2.0
+TIMING_WINDOW_S = 1.0
+# Graph times of K1 and K3 with one thread per env, quoted from the kernels'
+# earlier rows in PERF.md's table (NVIDIA H100 80GB HBM3, 700.00 W), not
+# measured here: (kernel, envs) -> ms. The timing rows print them beside
+# this run's times, which must be lower.
+PREV_GRAPH_MS = {("K1", 1024): 0.0279, ("K1", 16384): 0.0287,
+                 ("K3", 1024): 0.0762, ("K3", 16384): 0.0777}
+# what ptxas says of a kernel that keeps its registers
+NO_SPILLS = ", 0 bytes spill stores, 0 bytes spill loads"
+# widths that leave a warp partly empty or a group count off a multiple of 8
+TAIL_WIDTHS = (1000, 7, 1)
 K4_REPLACES = "wheeledlab_tpu/tasks/drift/fused.py:512"
 K5A_REPLACES = "scripts/limiter_probe.py:80"
 K5B_REPLACES = "scripts/check_kernel_rng.py:50"
@@ -150,6 +172,9 @@ def build_phase():
                 print(f"ptxas {name}:", line.strip())
             if "Used" in line and "registers" in line:
                 registers[name] = line.split("ptxas info    :")[-1].strip()
+            if "spill" in line and NO_SPILLS not in line:
+                raise AssertionError(f"{name} spills registers: "
+                                     f"{line.strip()}")
     return registers
 
 
@@ -278,7 +303,7 @@ def kernel_phase(device):
           flush=True)
     max_err, cases = 0.0, {}
     for robot in ("mushr", "f1tenth"):
-        for b in (16384, 1024, 1000):
+        for b in (16384, 1024) + TAIL_WIDTHS:
             cfg, x = step_inputs(robot, b, seed=b + len(robot), device=device)
             got = kernel_step(cfg, x)
             torch.cuda.synchronize()
@@ -289,10 +314,22 @@ def kernel_phase(device):
                   f"tolerance {flipped}, resets {resets}", flush=True)
             if flipped:
                 raise AssertionError(f"{flipped} of {b} envs disagree")
-            if resets == 0 or int(want[2][2].sum()) == 0:
+            if b >= 1000 and (resets == 0 or int(want[2][2].sum()) == 0):
                 raise AssertionError("inputs fired no reset or time-out")
             max_err = max(max_err, err)
             cases[(robot, b)] = (cfg, x)
+        b = 1024
+        cfg, x = cases[(robot, b)]
+        standing = standing_drift_inputs(x, b, robot)
+        got = kernel_step(cfg, standing)
+        torch.cuda.synchronize()
+        err, flipped = compare(got, plain_step(cfg, standing))
+        print(f"{robot} B={b}, standing start: max_abs_err {err:.3e}, envs "
+              f"beyond tolerance {flipped}", flush=True)
+        if flipped:
+            raise AssertionError(f"{flipped} of {b} standing envs disagree")
+        max_err = max(max_err, err)
+        cases[(robot, b, "standing")] = (cfg, standing)
     return max_err, cases
 
 
@@ -328,13 +365,15 @@ def flat_inputs(robot, b, seed, device):
                 wheel_t=wheel_t.T.contiguous())
 
 
-def hf_inputs(b, seed, device):
+def hf_inputs(b, seed, device, p=None):
     """Inputs of one heightfield physics step (K3) at the elevation task's
     constants, made with numpy from `seed`: states over the mounds of a
     generated terrain, from wheels pressed into the ground to airborne,
     tilted and moving; DR'd params; the patches and origins that
-    `PatchAtlas.extract_rows` gives for those positions. Returns (consts,
-    inputs, envs with a wheel in contact, envs with none)."""
+    `PatchAtlas.extract_rows` gives for those positions, from the task's
+    contact atlas (p = 12) or, with `p`, from an atlas of (p, p) patches of
+    the same terrain. Returns (consts, inputs, envs with a wheel in contact,
+    envs with none)."""
     import numpy as np
     import torch
 
@@ -347,7 +386,8 @@ def hf_inputs(b, seed, device):
 
     rng = np.random.default_rng(seed)
     task = make_elevation_task(ElevationTaskCfg(num_envs=b), device)
-    atlas = task.contact_atlas
+    atlas = (task.contact_atlas if p is None
+             else task.terrain.build_atlas(p=p, stride=2))
     gen = torch.Generator(device=device).manual_seed(seed)
     params = pack_params(task.init_params(gen, b, device),
                          task.terrain.friction)
@@ -387,6 +427,46 @@ def hf_inputs(b, seed, device):
     return consts, inputs, n_touch, b - n_touch
 
 
+def standing_drift_inputs(x, b, robot="mushr"):
+    """`x` with the state an env starts from: every car standing on the
+    track, counters at zero, as `make_drift_env(...).reset()` gives them."""
+    from wheeledlab_torch.tasks.drift.task import DriftTaskCfg, make_drift_env
+
+    env = make_drift_env(DriftTaskCfg(num_envs=b, robot=robot),
+                         device="cuda", seed=0)
+    state, _ = env.reset()
+    return {**x, "state": state.vehicle_mem, "params": state.packed_params,
+            "step_count": state.step_count[None],
+            "timers": state.push_timers,
+            "ep_return": state.ep_return[None],
+            "ep_len": state.ep_len[None]}
+
+
+def standing_hf_inputs(b):
+    """K3's inputs for cars at rest on the terrain: the state an elevation
+    env starts from, its contact patches, and zero joint targets. Returns
+    (consts, inputs)."""
+    import torch
+
+    from wheeledlab_torch.tasks.elevation.task import (
+        ElevationTaskCfg, make_elevation_env,
+    )
+
+    env = make_elevation_env(ElevationTaskCfg(num_envs=b), device="cuda",
+                             seed=0)
+    state, _ = env.reset()
+    mem = state.vehicle_mem
+    atlas = env.task.contact_atlas
+    patch, org = atlas.extract_rows(mem[0], mem[1])
+    nx, ny = atlas.grid_shape
+    consts = dict(dt=env.cfg.sim_dt, decimation=env.cfg.decimation,
+                  p=atlas.p, nx=nx, ny=ny, cell=atlas.cell)
+    inputs = dict(state=mem, params=state.packed_params, patch=patch, org=org,
+                  steer_t=torch.zeros((2, b), device="cuda"),
+                  wheel_t=torch.zeros((4, b), device="cuda"))
+    return consts, inputs
+
+
 def physics_phase(device):
     """K2 and K3 against their plain versions. Every case is checked and
     printed before a disagreement raises."""
@@ -396,7 +476,7 @@ def physics_phase(device):
         physics_step, physics_step_rows,
     )
     from wheeledlab_torch.ops.physics_step_hf import (
-        physics_step_hf, physics_step_hf_rows,
+        MAX_P, physics_step_hf, physics_step_hf_rows,
     )
 
     phase("kernel (K2, K3)")
@@ -416,22 +496,37 @@ def physics_phase(device):
                 if bad:
                     failures.append(f"K2 {robot} B={b} dec {dec}: {bad}")
                 cases[("K2", robot, b, dec)] = (x, k)
-    for b in (16384, 1024, 1000):
-        k, x, touch, air = hf_inputs(b, seed=b, device=device)
-        if touch == 0 or air == 0:
+    # K3 is built without FMA contraction and must equal its plain version
+    # bit for bit: p = 12 at every width; at 1024 envs p = 30, where the
+    # launcher opts in to shared memory, and the largest patch that fits;
+    # and cars at rest on the terrain
+    hf_cases = [(("K3", b), *hf_inputs(b, seed=b, device=device))
+                for b in (16384, 1024) + TAIL_WIDTHS]
+    for p in (30, MAX_P):
+        hf_cases.append((("K3", 1024, f"p{p}"),
+                         *hf_inputs(1024, seed=p, device=device, p=p)))
+    hf_cases.append((("K3", 1024, "standing"), *standing_hf_inputs(1024),
+                     None, None))
+    for key, k, x, touch, air in hf_cases:
+        b = key[1]
+        if touch is not None and b >= 1000 and (touch == 0 or air == 0):
             raise AssertionError(f"K3 inputs: {touch} envs touch the "
                                  f"ground, {air} do not; need both")
         got = physics_step_hf(**x, **k)
         torch.cuda.synchronize()
-        err, bad = compare_rows(got, physics_step_hf_rows(**x, **k))
-        print(f"K3 B={b} decimation {k['decimation']} p={k['p']}: "
-              f"max_abs_err {err:.3e}, envs beyond tolerance {bad}; "
-              f"{touch} envs start with a wheel in contact, {air} airborne",
-              flush=True)
+        want = physics_step_hf_rows(**x, **k)
+        err, bad = compare_rows(got, want)
+        differ = envs_not_bit_equal([got], [want])
+        print(f"K3 {' '.join(map(str, key[1:]))} decimation "
+              f"{k['decimation']} p={k['p']}: max_abs_err {err:.3e}, envs "
+              f"beyond tolerance {bad}, envs not bit-equal {differ}"
+              + ("" if touch is None else f"; {touch} envs start with a "
+                 f"wheel in contact, {air} airborne"), flush=True)
         errs["K3"] = max(errs["K3"], err)
-        if bad:
-            failures.append(f"K3 B={b}: {bad}")
-        cases[("K3", b)] = (x, k)
+        if bad or differ:
+            failures.append(f"K3 {key[1:]}: {bad} beyond, {differ} not "
+                            f"bit-equal")
+        cases[key] = (x, k)
     if failures:
         raise AssertionError("envs beyond tolerance: " + "; ".join(failures))
     return errs, cases
@@ -896,29 +991,72 @@ def rng_calls(b, noise=True):
     return draw
 
 
-def standing_start_row(cases, b, card):
-    """K1's device time on the state an env starts from (every car standing
-    on the track) beside its time on `step_inputs`' moving cars: the step's
-    time depends on its data."""
-    import torch
-
-    from wheeledlab_torch.tasks.drift.task import DriftTaskCfg, make_drift_env
+def standing_start_rows(cases, phys_cases, b, card):
+    """K1's and K3's device times on the state an env starts from (every
+    car standing) beside their times on moving cars: a division whose
+    numerator is zero leaves the card's fast path, which made a step on
+    standing cars 30 % (K1) and 43 % (K3) dearer with one thread per env;
+    `substep.cuh::divz` selects around it."""
+    from wheeledlab_torch.ops.physics_step_hf import physics_step_hf
 
     cfg, x = cases[("mushr", b)]
-    env = make_drift_env(DriftTaskCfg(num_envs=b), device="cuda", seed=0)
-    state, _ = env.reset()
-    standing = {**x, "state": state.vehicle_mem,
-                "params": state.packed_params,
-                "step_count": state.step_count[None],
-                "timers": state.push_timers,
-                "ep_return": state.ep_return[None],
-                "ep_len": state.ep_len[None]}
-    row = {"name": "fused_drift_step, standing start", "envs": b,
-           "graph_ms": graphed(lambda: kernel_step(cfg, standing)),
-           "moving_graph_ms": graphed(lambda: kernel_step(cfg, x)),
-           "card": card}
-    print(json.dumps(row), flush=True)
-    return row
+    standing = standing_drift_inputs(x, b)
+    k1 = {"name": "fused_drift_step, standing start", "envs": b,
+          "graph_ms": graphed(lambda: kernel_step(cfg, standing)),
+          "moving_graph_ms": graphed(lambda: kernel_step(cfg, x)),
+          "card": card}
+    print(json.dumps(k1), flush=True)
+    hx, hk = phys_cases[("K3", b)]
+    sk, sx = standing_hf_inputs(b)
+    k3 = {"name": "physics_step_hf, standing start", "envs": b,
+          "graph_ms": graphed(lambda: physics_step_hf(**sx, **sk)),
+          "moving_graph_ms": graphed(lambda: physics_step_hf(**hx, **hk)),
+          "card": card}
+    print(json.dumps(k3), flush=True)
+    return {"K1": k1, "K3": k3}
+
+
+def registers_per_thread(registers, source):
+    """The register count in this build's ptxas line for `source`."""
+    used = registers.get(source, "")
+    return int(used.split()[1]) if used else None
+
+
+def launch_shape(kernel, source, b, registers):
+    """What a launch of a wheel-lane kernel over `b` envs looks like on this
+    card, from the grouping constants of `csrc/substep.cuh`: registers,
+    block size, blocks, and warps an SM holds (averaged over the SMs that
+    get a block) when the whole launch is resident; beside them the quoted
+    graph time of the kernel with one thread per env."""
+    import re
+
+    import torch
+
+    from wheeledlab_torch.ops.build import CSRC
+
+    with open(os.path.join(CSRC, "substep.cuh")) as f:
+        header = f.read()
+    const = lambda name: int(re.search(
+        rf"constexpr int {name} = (\d+);", header).group(1))
+    threads = const("kBlockThreads")
+    envs_per_block = threads // const("kLanesPerEnv")
+    blocks = (b + envs_per_block - 1) // envs_per_block
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"prev_graph_ms": PREV_GRAPH_MS[(kernel, b)],
+            "prev_graph_ms_is": "quoted from PERF.md: one thread per env",
+            "registers_per_thread": registers_per_thread(registers, source),
+            "threads_per_block": threads, "blocks": blocks,
+            "warps_per_sm": blocks * (threads // 32) / min(blocks, sms)}
+
+
+def check_faster(row):
+    """A wheel-lane kernel's device time must stay below the quoted time of
+    the kernel with one thread per env."""
+    if not row["graph_ms"] < row["prev_graph_ms"]:
+        raise AssertionError(
+            f"{row['name']} at {row['envs']} envs: graph_ms "
+            f"{row['graph_ms']} is not below {row['prev_graph_ms']}, the "
+            f"kernel's time with one thread per env")
 
 
 def rng_timing_phase(cases, kept, card):
@@ -990,7 +1128,7 @@ def rng_timing_phase(cases, kept, card):
     return rows
 
 
-def timing_phase(cases, phys_cases, card):
+def timing_phase(cases, phys_cases, card, registers):
     from wheeledlab_torch.ops.physics_step import (
         physics_step, physics_step_rows,
     )
@@ -1005,14 +1143,16 @@ def timing_phase(cases, phys_cases, card):
         rows[("K1", b)] = timing_row(
             "fused_drift_step", b, lambda: kernel_step(cfg, x),
             lambda: plain_step(cfg, x), step_bytes(cfg, x), OPS_PER_ENV * b,
-            card)
+            card, **launch_shape("K1", "fused_drift", b, registers))
+        check_faster(rows[("K1", b)])
     # K2 at the play path's shape (16 envs, decimation 4) and at the
     # training widths; it reads state, params and targets and writes state
     for b in (16, 1024, 16384):
         x, k = phys_cases[("K2", "mushr", b, 4)]
         rows[("K2", b)] = timing_row(
             "physics_step", b, lambda: physics_step(**x, **k),
-            lambda: physics_step_rows(**x, **k), 4 * (21 + 46 + 2 + 4 + 21) * b,
+            lambda: physics_step_rows(**x, **k),
+            4 * (21 + 46 + 2 + 4 + 21) * b,
             k["decimation"] * FLAT_SUBSTEP_OPS * b, card,
             decimation=k["decimation"])
     for b in (1024, 16384):
@@ -1022,7 +1162,9 @@ def timing_phase(cases, phys_cases, card):
             "physics_step_hf", b, lambda: physics_step_hf(**x, **k),
             lambda: physics_step_hf_rows(**x, **k), 4 * words * b,
             k["decimation"] * HF_SUBSTEP_OPS * b, card,
-            decimation=k["decimation"], p=k["p"])
+            decimation=k["decimation"], p=k["p"],
+            **launch_shape("K3", "physics_step_hf", b, registers))
+        check_faster(rows[("K3", b)])
     return rows
 
 
@@ -1056,9 +1198,10 @@ def main():
          (k3_launches, elev_ms)) = train_phase(device, logs)
         k2_launches = play_phase(logs)
     k5b_launches, k5a_launches, mppi_launches, probe = script_phase()
-    timing = timing_phase(cases, phys_cases, card)
+    timing = timing_phase(cases, phys_cases, card, registers)
     timing.update(rng_timing_phase(cases, kept, card))
-    standing = {b: standing_start_row(cases, b, card) for b in (1024, 16384)}
+    standing = {b: standing_start_rows(cases, phys_cases, b, card)
+                for b in (1024, 16384)}
     k = lambda name: {b: r for (n, b), r in timing.items() if n == name}
     extra = lambda row, *keys: {key: row[key] for key in keys}
     kernels = [
@@ -1068,9 +1211,11 @@ def main():
                     registers.get("fused_drift"),
                     train_iteration_ms=drift_ms,
                     mppi_demo_launches=mppi_launches,
-                    standing_start_graph_ms=standing[1024]["graph_ms"],
-                    standing_start_graph_ms_16384=standing[16384][
-                        "graph_ms"]),
+                    standing_start_graph_ms=standing[1024]["K1"]["graph_ms"],
+                    standing_start_graph_ms_16384=standing[16384]["K1"][
+                        "graph_ms"],
+                    registers_per_thread=registers_per_thread(
+                        registers, "fused_drift")),
         kernel_line("physics_step", "wheeledlab_torch/csrc/physics_step.cu",
                     K2_REPLACES, k2_launches, phys_err["K2"], k("K2"), 16,
                     16384, registers.get("physics_step"),
@@ -1082,7 +1227,12 @@ def main():
                     "wheeledlab_torch/csrc/physics_step_hf.cu", K3_REPLACES,
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
                     registers.get("physics_step_hf"),
-                    train_iteration_ms=elev_ms),
+                    train_iteration_ms=elev_ms,
+                    standing_start_graph_ms=standing[1024]["K3"]["graph_ms"],
+                    standing_start_graph_ms_16384=standing[16384]["K3"][
+                        "graph_ms"],
+                    registers_per_thread=registers_per_thread(
+                        registers, "physics_step_hf")),
         kernel_line("fused_drift_step_krng",
                     "wheeledlab_torch/csrc/fused_drift_krng.cu", K4_REPLACES,
                     k4_launches, rng_err["K4"], k("K4"), 1024, 16384,

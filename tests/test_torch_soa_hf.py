@@ -160,7 +160,7 @@ class TestPhysicsStepHf:
         with pytest.raises(ValueError, match="contiguous"):
             call(t[0], t[1], t[2], t[3], t[4].T.contiguous().T, t[5])
         with pytest.raises(ValueError, match="patch side"):
-            call(*t[:2], torch.zeros((31 * 31, B)), *t[3:], p=31)
+            call(*t[:2], torch.zeros((43 * 43, B)), *t[3:], p=43)
 
 
 class TestPhysicsStep:

@@ -1,7 +1,8 @@
-// One drift control step of one env on register-resident rows: the device
-// code shared by the fused drift step (`fused_drift.cu`), its in-kernel-RNG
-// variant (`fused_drift_krng.cu`) and the K-step resident rollout
-// (`multi_step.cu`).
+// One drift control step of one env on register-resident rows, worked by a
+// group of 4 adjacent lanes (lane w owns wheel w; see `substep.cuh`): the
+// device code shared by the fused drift step (`fused_drift.cu`), its
+// in-kernel-RNG variant (`fused_drift_krng.cu`) and the K-step resident
+// rollout (`multi_step.cu`).
 //
 // It is the row math of `wheeledlab_tpu/tasks/drift/fused.py::
 // drift_step_rows`; its plain PyTorch version, and the oracle the kernels are
@@ -17,6 +18,16 @@
 // asked for only where the step uses it: two uniform rows (the second push
 // event moves only the yaw rate) and two normal rows (the action rows of the
 // observation carry no noise) are never touched.
+//
+// Design (who computes what). The substeps are `substep.cuh`'s: a wheel a
+// lane. The action map gives each lane the target of its own wheel and of
+// its own steering axis (selects on the lane's wheel index, no branch). The
+// rest of the step (pushes, terminations, rewards, reset, observation: an
+// eighth of the step's operations) reads only rows that all 4 lanes hold
+// with the same bits, apart from the two steering angles, which the reward
+// fetches from lanes 0 and 1; every lane computes it, so the group never
+// diverges and the step's integers stay uniform in the group, and each
+// output row is stored by one lane (`fused_step_lane`).
 #pragma once
 
 #include <stdint.h>
@@ -89,33 +100,28 @@ struct DriftStepOut {
   float out[kNumOut];
 };
 
-// World->body rotation of a velocity vector: R^T v.
-__device__ __forceinline__ void body_frame(const float s[kNumState], float vx,
+// World->body rotation of a velocity vector: R^T v, with R from rows
+// S_QW .. S_QZ of `s`.
+__device__ __forceinline__ void body_frame(const float s[kNumBody], float vx,
                                            float vy, float vz, float out[3]) {
-  const float qw = s[S_QW], qx = s[S_QX], qy = s[S_QY], qz = s[S_QZ];
-  const float r00 = 1.f - 2.f * (qy * qy + qz * qz);
-  const float r01 = 2.f * (qx * qy - qw * qz);
-  const float r02 = 2.f * (qx * qz + qw * qy);
-  const float r10 = 2.f * (qx * qy + qw * qz);
-  const float r11 = 1.f - 2.f * (qx * qx + qz * qz);
-  const float r12 = 2.f * (qy * qz - qw * qx);
-  const float r20 = 2.f * (qx * qz - qw * qy);
-  const float r21 = 2.f * (qy * qz + qw * qx);
-  const float r22 = 1.f - 2.f * (qx * qx + qy * qy);
-  out[0] = r00 * vx + r10 * vy + r20 * vz;
-  out[1] = r01 * vx + r11 * vy + r21 * vz;
-  out[2] = r02 * vx + r12 * vy + r22 * vz;
+  const Rot R = rotation(s[S_QW], s[S_QX], s[S_QY], s[S_QZ]);
+  out[0] = R.r00 * vx + R.r10 * vy + R.r20 * vz;
+  out[1] = R.r01 * vx + R.r11 * vy + R.r21 * vz;
+  out[2] = R.r02 * vx + R.r12 * vy + R.r22 * vz;
 }
 
-// One control step. `s`, `step_count`, `timer`, `ep_return` and `ep_len` are
-// updated in place (post-reset values); `p` is read. With `kOutputs` the obs
-// and info blocks are written to `o`; without, they are not computed.
+// One control step of one env by its 4 lanes; `w` is this lane's wheel.
+// `ls`, `step_count`, `timer`, `ep_return` and `ep_len` are updated in place
+// (post-reset values); `p` is read. With `kOutputs` the obs and info blocks
+// are written to `o` (all of them, in every lane); without, they are not
+// computed.
 template <bool kOutputs, class Rows>
 __device__ __forceinline__ void drift_step(
     const FusedDriftConsts& c, const float* __restrict__ weights,
-    const float* __restrict__ poses, float s[kNumState],
-    const float p[kNumParam], float a0, float a1, Rows& rows, int& step_count,
+    const float* __restrict__ poses, LaneState& ls, const LaneParams& p,
+    int w, float a0, float a1, Rows& rows, int& step_count,
     int timer[kMaxPush], float& ep_return, int& ep_len, DriftStepOut& o) {
+  float* const s = ls.body;
   // 1. action manager (row form of sim/actions.py; tan via sin/cos)
   float v, st;
   if (c.bounding == 0) {
@@ -129,29 +135,28 @@ __device__ __forceinline__ void drift_step(
     st = a1 * c.scale_steer + c.offset_steer;
   }
   if (c.no_reverse) v = maxp(v, 0.f);
-  const float tan_steering = sinf(st) / cosf(st);
+  const float tan_steering = divz(sinf(st), cosf(st));
   const float r = c.wheel_radius;
-  float steer_t[2] = {tan_steering, tan_steering};
-  float wheel_t[4];
+  // both steering axes take the same target; this lane's wheel its own:
+  // wheels 0, 1 are the rear (driven under rwd), 2, 3 the front; odd wheels
+  // are on the +half_width side of the turn
+  const float steer_t = tan_steering;
+  float wheel_t;
   if (c.drivetrain == 0) {
-    const float tgt = v / r;
-    wheel_t[0] = tgt;
-    wheel_t[1] = tgt;
-    wheel_t[2] = 0.f;
-    wheel_t[3] = 0.f;
+    const float tgt = divz(v, r);
+    wheel_t = w < 2 ? tgt : 0.f;
   } else {
     const float R =
         tan_steering == 0.f ? 1e6f : c.base_length / tan_steering;
     const float hw = c.half_width, L2 = c.base_length_sq;
-    wheel_t[0] = v * fabsf((R - hw) / (R * r));
-    wheel_t[1] = v * fabsf((R + hw) / (R * r));
-    wheel_t[2] = v * fabsf(sqrtf((R - hw) * (R - hw) + L2) / (R * r));
-    wheel_t[3] = v * fabsf(sqrtf((R + hw) * (R + hw) + L2) / (R * r));
+    const float side = (w & 1) ? R + hw : R - hw;
+    const float reach = w < 2 ? side : sqrtf(side * side + L2);
+    wheel_t = v * fabsf(reach / (R * r));
   }
 
   // 2. physics decimation
   for (int i = 0; i < c.decimation; ++i)
-    substep_flat(s, p, steer_t, wheel_t, c.dt, c.dt2, c.half_dt);
+    substep_flat(ls, p, w, steer_t, wheel_t, c.dt, c.dt2, c.half_dt);
 
   // 3. interval events: velocity pushes
 #pragma unroll
@@ -207,7 +212,9 @@ __device__ __forceinline__ void drift_step(
   const float dv = ground_speed - c.max_speed;
   terms[1] = dv * dv - c.max_speed_sq;                           // vel
   terms[2] = s[S_WZ];                                            // progress
-  const float steer_mean = 0.5f * (s[S_STEER_POS] + s[S_STEER_POS + 1]);
+  const float steer_0 = __shfl_sync(kFullMask, ls.sp, 0, kLanesPerEnv);
+  const float steer_1 = __shfl_sync(kFullMask, ls.sp, 1, kLanesPerEnv);
+  const float steer_mean = 0.5f * (steer_0 + steer_1);
   const float aw = clipp(bw[2], -1.f, 1.f);
   terms[3] = maxp(steer_mean * aw * -1.f, 0.f);                  // tlgr
   terms[4] = fabsf(py) > c.straight ? ground_sq + bv[2] * bv[2] : 0.f;
@@ -241,7 +248,7 @@ __device__ __forceinline__ void drift_step(
   const float donef = done ? 1.f : 0.f;
   const float keep = 1.f - donef;
 #pragma unroll
-  for (int r2 = 0; r2 < kNumState; ++r2) {
+  for (int r2 = 0; r2 < kNumBody; ++r2) {
     float spawn = 0.f;
     bool spawn_row = true;
     switch (r2) {
@@ -254,6 +261,10 @@ __device__ __forceinline__ void drift_step(
     }
     s[r2] = spawn_row ? donef * spawn + keep * s[r2] : keep * s[r2];
   }
+  // the wheel rates and the steering rows carry no spawn value
+  ls.om = keep * ls.om;
+  ls.sp = keep * ls.sp;
+  ls.sv = keep * ls.sv;
   step_count = done ? 0 : sc;
   ep_return = keep * ep_return_pre;
   ep_len = done ? 0 : ep_len_pre;
@@ -300,12 +311,35 @@ __device__ __forceinline__ int timer_rows(const FusedDriftConsts& c) {
   return c.n_push > 0 ? c.n_push : 1;
 }
 
-// One thread's whole fused step: load the env's rows, step, store. The body
-// of the fused drift kernel and of its in-kernel-RNG variant, which differ
-// only in the row source. Rows are (rows, B) row-major, so thread b reads
-// x[r*B + b] and a warp's loads and stores are coalesced.
+// The step's counters, which all 4 lanes hold alike, stored once: the step
+// count by lane 0, the push timers by lane 1, the episode return by lane 2
+// and its length by lane 3. The caller has checked `id.live`.
+__device__ __forceinline__ void store_lane_counters(
+    const FusedDriftConsts& c, const LaneId id, size_t n, int sc,
+    const int tm[kMaxPush], float er, int el, int32_t* __restrict__ step_out,
+    int32_t* __restrict__ timers_out, float* __restrict__ epret_out,
+    int32_t* __restrict__ eplen_out) {
+  const int b = id.b;
+  if (id.w == 0) step_out[b] = sc;
+  // unrolled over the compile-time bound so the timers stay in registers
+#pragma unroll
+  for (int i = 0; i < kMaxPush; ++i)
+    if (id.w == 1 && i < timer_rows(c)) timers_out[i * n + b] = tm[i];
+  if (id.w == 2) epret_out[b] = er;
+  if (id.w == 3) eplen_out[b] = el;
+}
+
+// One lane's share of a whole fused step: load the env's rows, step, store.
+// The body of the fused drift kernel and of its in-kernel-RNG variant, which
+// differ only in the row source. Rows are (rows, B) row-major; a row the
+// group shares is loaded by its 4 lanes from one address (a warp's load is 8
+// consecutive floats, one 32-byte sector when B is a multiple of 8), and
+// every output row is stored by one lane of the group: state as
+// `store_lane_state` says, obs and info row i by lane i & 3
+// (`store_shared_rows`), the step count, timers, return and length by lanes
+// 0, 1, 2 and 3.
 template <class Rows>
-__device__ __forceinline__ void fused_step_thread(
+__device__ __forceinline__ void fused_step_lane(
     const FusedDriftConsts& c, const float* __restrict__ weights,
     const float* __restrict__ poses, const float* __restrict__ state,
     const float* __restrict__ params, const float* __restrict__ actions,
@@ -314,14 +348,13 @@ __device__ __forceinline__ void fused_step_thread(
     const int32_t* __restrict__ ep_len, float* __restrict__ state_out,
     float* __restrict__ obs_out, float* __restrict__ out,
     int32_t* __restrict__ step_out, int32_t* __restrict__ timers_out,
-    float* __restrict__ epret_out, int32_t* __restrict__ eplen_out, int b,
-    size_t n) {
-  float s[kNumState];
-  float p[kNumParam];
-#pragma unroll
-  for (int r = 0; r < kNumState; ++r) s[r] = state[r * n + b];
-#pragma unroll
-  for (int r = 0; r < kNumParam; ++r) p[r] = params[r * n + b];
+    float* __restrict__ epret_out, int32_t* __restrict__ eplen_out,
+    const LaneId id, size_t n) {
+  const int b = id.b;
+  LaneState s;
+  LaneParams p;
+  load_lane_state(state, n, id, s);
+  load_lane_params(params, n, id, p);
   const float a0 = actions[b], a1 = actions[n + b];
   int sc = step_count[b];
   int tm[kMaxPush] = {0, 0};
@@ -332,21 +365,15 @@ __device__ __forceinline__ void fused_step_thread(
   int el = ep_len[b];
 
   DriftStepOut o;
-  drift_step<true>(c, weights, poses, s, p, a0, a1, rows, sc, tm, er, el, o);
+  drift_step<true>(c, weights, poses, s, p, id.w, a0, a1, rows, sc, tm, er,
+                   el, o);
 
-#pragma unroll
-  for (int r = 0; r < kNumState; ++r) state_out[r * n + b] = s[r];
-#pragma unroll
-  for (int i = 0; i < kObsRows; ++i) obs_out[i * n + b] = o.obs[i];
-#pragma unroll
-  for (int i = 0; i < kNumOut; ++i) out[i * n + b] = o.out[i];
-  step_out[b] = sc;
-  // unrolled over the compile-time bound so the timers stay in registers
-#pragma unroll
-  for (int i = 0; i < kMaxPush; ++i)
-    if (i < timer_rows(c)) timers_out[i * n + b] = tm[i];
-  epret_out[b] = er;
-  eplen_out[b] = el;
+  store_lane_state(state_out, n, id, s);
+  if (!id.live) return;
+  store_shared_rows(obs_out, n, id, o.obs);
+  store_shared_rows(out, n, id, o.out);
+  store_lane_counters(c, id, n, sc, tm, er, el, step_out, timers_out,
+                      epret_out, eplen_out);
 }
 
 }  // namespace wl

@@ -21,22 +21,32 @@
 // about 2.95 us at the H100's 3.35 TB/s; at the 1024 envs of the training
 // config it is 0.62 MB, about 0.18 us. Its arithmetic (about 3400 float
 // operations per env) is below the card's float32 rate, so bytes bound it.
-// Measured on an H100 SXM at 700 W, it takes about 29 us at both sizes:
-// either grid is a single wave with at most 4 warps per SM, so each thread's
-// long chain of dependent float operations sets the time (latency-bound).
-// Splitting an env's work across lanes (e.g. one wheel per lane) is the
-// lever for a later change.
+// The kernel is far from that bound at either size: what it waits for is
+// the latency of each thread's chain of dependent float operations, IEEE
+// divisions and precise sinf/cosf/tanhf included (times in PERF.md). The
+// design below shortens the chain and gives every warp scheduler more than
+// one warp to choose from; the bound counts an env's work once, not the
+// lanes that repeat it.
 //
-// Design: one thread per env over a 1-D grid, tail masked (B need not be a
-// multiple of anything). Rows are (rows, B) row-major, so thread b reads
-// x[r*B + b] and a warp's loads and stores are coalesced. The 21 state rows
-// and 46 parameter rows stay in registers through the 4 substeps and the
-// epilogue: state touches device memory once in and once out. The 7
-// curriculum weights and the (N, 4) pose table are small device buffers read
-// through the read-only cache. Compile-time constants of the step arrive by
-// value in `FusedDriftConsts`. The step itself is `drift_step.cuh::
-// drift_step`, shared with `fused_drift_krng.cu` and `multi_step.cu`; here
-// its random rows are read from device memory (`GlobalRows`).
+// Design: 4 adjacent lanes per env, lane w owning wheel w (`substep.cuh`
+// says who computes what and why the six force sums are taken in wheel
+// order); 4 warps, 32 envs, a block over a 1-D grid, the tail groups masked
+// at their stores (B need not be a multiple of anything). 1024 envs are 32
+// blocks on 32 of the card's 132 SMs, a warp a scheduler; 16384 envs are 512
+// blocks, 15 or 16 warps an SM (4 a scheduler), all resident at once since
+// a thread is held to 128 registers (`kMinBlocksPerSm`). A lane keeps 16 of
+// the 21 state rows and 28 of the 46 parameter rows in registers through the
+// 4 substeps and the epilogue: state touches device memory once in and once
+// out. Rows are (rows, B) row-major: a warp's load of a row its groups share
+// is 8 consecutive floats, one 32-byte sector (the 4 lanes of a group read
+// one address, which the hardware broadcasts); a per-wheel row is 4 sectors;
+// each output row is stored once, by one lane of the group
+// (`drift_step.cuh::fused_step_lane`). The 7 curriculum weights and the
+// (N, 4) pose table are small device buffers read through the read-only
+// cache. Compile-time constants of the step arrive by value in
+// `FusedDriftConsts`. The step itself is `drift_step.cuh::drift_step`,
+// shared with `fused_drift_krng.cu` and `multi_step.cu`; here its random
+// rows are read from device memory (`GlobalRows`).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,7 +54,8 @@
 
 namespace wl {
 
-__global__ void __launch_bounds__(128) fused_drift_kernel(
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksPerSm)
+fused_drift_kernel(
     const FusedDriftConsts c, const float* __restrict__ weights,
     const float* __restrict__ poses, const float* __restrict__ state,
     const float* __restrict__ params, const float* __restrict__ actions,
@@ -55,13 +66,12 @@ __global__ void __launch_bounds__(128) fused_drift_kernel(
     float* __restrict__ out, int32_t* __restrict__ step_out,
     int32_t* __restrict__ timers_out, float* __restrict__ epret_out,
     int32_t* __restrict__ eplen_out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const LaneId id = lane_id(B);
   const size_t n = static_cast<size_t>(B);
-  GlobalRows rows{uniforms, normals, n, b};
-  fused_step_thread(c, weights, poses, state, params, actions, rows,
-                    step_count, timers, ep_return, ep_len, state_out, obs_out,
-                    out, step_out, timers_out, epret_out, eplen_out, b, n);
+  GlobalRows rows{uniforms, normals, n, id.b};
+  fused_step_lane(c, weights, poses, state, params, actions, rows, step_count,
+                  timers, ep_return, ep_len, state_out, obs_out, out, step_out,
+                  timers_out, epret_out, eplen_out, id, n);
 }
 
 }  // namespace wl
@@ -77,9 +87,7 @@ extern "C" int fused_drift_launch(
     int32_t* timers_out, float* epret_out, int32_t* eplen_out, int B,
     void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  wl::fused_drift_kernel<<<blocks, threads, 0,
+  wl::fused_drift_kernel<<<wl::blocks_for(B), wl::kBlockThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       c, weights, poses, state, params, actions, uniforms, normals,
       step_count, timers, ep_return, ep_len, state_out, obs_out, out,

@@ -19,13 +19,16 @@
 // operations it does 10 Philox calls per env (each 10 rounds of 2 wide
 // multiplies, 2 low multiplies, 4 xors and 2 adds: 1000 integer operations)
 // and 12 Box-Muller normals; both stay far below the card's rates, so bytes
-// bound it, and like `fused_drift.cu` it runs at the latency of one thread's
+// bound it, and like `fused_drift.cu` it runs at the latency of a lane's
 // dependent chain.
 //
-// Design: `fused_drift.cu`'s (one thread per env, 67 rows in registers), with
-// `PhiloxRows` as the step's row source. Rows are drawn where the step reads
-// them, so the 4 rows it never reads cost nothing, and with observation noise
-// off only the 3 Philox calls of the uniform rows run.
+// Design: `fused_drift.cu`'s (4 lanes per env, a wheel a lane, 4 warps a
+// block), with `PhiloxRows` as the step's row source. A draw depends only on
+// (seed, env, draw index), so the 4 lanes of a group draw the same rows, each
+// for itself: the generator's integer work is repeated, nothing is sent
+// between lanes, and the bound counts it once. Rows are drawn where the step
+// reads them, so the 4 rows it never reads cost nothing, and with observation
+// noise off only the 3 Philox calls of the uniform rows run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,7 +37,8 @@
 
 namespace wl {
 
-__global__ void __launch_bounds__(128) fused_drift_krng_kernel(
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksPerSm)
+fused_drift_krng_kernel(
     const FusedDriftConsts c, const float* __restrict__ weights,
     const float* __restrict__ poses, const float* __restrict__ state,
     const float* __restrict__ params, const float* __restrict__ actions,
@@ -44,14 +48,13 @@ __global__ void __launch_bounds__(128) fused_drift_krng_kernel(
     float* __restrict__ obs_out, float* __restrict__ out,
     int32_t* __restrict__ step_out, int32_t* __restrict__ timers_out,
     float* __restrict__ epret_out, int32_t* __restrict__ eplen_out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const LaneId id = lane_id(B);
   const size_t n = static_cast<size_t>(B);
   PhiloxRows rows(static_cast<uint32_t>(__ldg(seed)),
-                  static_cast<uint32_t>(b));
-  fused_step_thread(c, weights, poses, state, params, actions, rows,
-                    step_count, timers, ep_return, ep_len, state_out, obs_out,
-                    out, step_out, timers_out, epret_out, eplen_out, b, n);
+                  static_cast<uint32_t>(id.b));
+  fused_step_lane(c, weights, poses, state, params, actions, rows, step_count,
+                  timers, ep_return, ep_len, state_out, obs_out, out, step_out,
+                  timers_out, epret_out, eplen_out, id, n);
 }
 
 }  // namespace wl
@@ -67,9 +70,7 @@ extern "C" int fused_drift_krng_launch(
     float* obs_out, float* out, int32_t* step_out, int32_t* timers_out,
     float* epret_out, int32_t* eplen_out, int B, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  wl::fused_drift_krng_kernel<<<blocks, threads, 0,
+  wl::fused_drift_krng_kernel<<<wl::blocks_for(B), wl::kBlockThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       c, weights, poses, state, params, actions, seed, step_count, timers,
       ep_return, ep_len, state_out, obs_out, out, step_out, timers_out,

@@ -22,14 +22,16 @@
 // the H100's 3.35 TB/s; its arithmetic is K x ~3200 float operations per env
 // (the step's ~3400 less the observation), 6.2 us at K = 8 and 16384 envs at
 // 67 TFLOP/s: operations bind from K = 5 on. Like `fused_drift.cu` one launch
-// is a single wave of at most 4 warps per SM, so its time is K times the
-// latency of one thread's dependent chain (times in PERF.md).
+// is a single wave, so its time is K times the latency of a lane's dependent
+// chain (times in PERF.md).
 //
-// Design: one thread per env over a 1-D grid, tail masked (any B); the K
-// steps are a runtime loop over `drift_step.cuh::drift_step` with its outputs
+// Design: `fused_drift.cu`'s grouping (4 lanes per env, a wheel a lane, 4
+// warps a block, the tail groups masked at their stores; any B); the K steps
+// are a runtime loop over `drift_step.cuh::drift_step` with its outputs
 // switched off, so the step's code exists once whatever K is. Built without
 // FMA contraction (`ops/build.py::SOURCE_FLAGS`), so that K chained steps
-// match the plain version bit for bit.
+// match the plain version bit for bit: the six force sums of a substep are
+// taken in wheel order in every lane (`substep.cuh::wheel_sum`).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,7 +39,8 @@
 
 namespace wl {
 
-__global__ void __launch_bounds__(128) multi_step_kernel(
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksPerSm)
+multi_step_kernel(
     const FusedDriftConsts c, const float* __restrict__ weights,
     const float* __restrict__ poses, const float* __restrict__ state,
     const float* __restrict__ params, const float* __restrict__ actions,
@@ -47,16 +50,14 @@ __global__ void __launch_bounds__(128) multi_step_kernel(
     float* __restrict__ state_out, int32_t* __restrict__ step_out,
     int32_t* __restrict__ timers_out, float* __restrict__ epret_out,
     int32_t* __restrict__ eplen_out, int B, int K) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const LaneId id = lane_id(B);
+  const int b = id.b;
   const size_t n = static_cast<size_t>(B);
 
-  float s[kNumState];
-  float p[kNumParam];
-#pragma unroll
-  for (int r = 0; r < kNumState; ++r) s[r] = state[r * n + b];
-#pragma unroll
-  for (int r = 0; r < kNumParam; ++r) p[r] = params[r * n + b];
+  LaneState s;
+  LaneParams p;
+  load_lane_state(state, n, id, s);
+  load_lane_params(params, n, id, p);
   int sc = step_count[b];
   int tm[kMaxPush] = {0, 0};
 #pragma unroll
@@ -72,18 +73,14 @@ __global__ void __launch_bounds__(128) multi_step_kernel(
     const float a1 = actions[(2 * k + 1) * n + b];
     GlobalRows rows{uniforms + static_cast<size_t>(kNumUniform) * k * n,
                     normals + static_cast<size_t>(kObsRows) * k * n, n, b};
-    drift_step<false>(c, weights, poses, s, p, a0, a1, rows, sc, tm, er, el,
-                      unused);
+    drift_step<false>(c, weights, poses, s, p, id.w, a0, a1, rows, sc, tm, er,
+                      el, unused);
   }
 
-#pragma unroll
-  for (int r = 0; r < kNumState; ++r) state_out[r * n + b] = s[r];
-  step_out[b] = sc;
-#pragma unroll
-  for (int i = 0; i < kMaxPush; ++i)
-    if (i < timer_rows(c)) timers_out[i * n + b] = tm[i];
-  epret_out[b] = er;
-  eplen_out[b] = el;
+  store_lane_state(state_out, n, id, s);
+  if (!id.live) return;
+  store_lane_counters(c, id, n, sc, tm, er, el, step_out, timers_out,
+                      epret_out, eplen_out);
 }
 
 }  // namespace wl
@@ -99,9 +96,7 @@ extern "C" int multi_step_launch(
     float* state_out, int32_t* step_out, int32_t* timers_out,
     float* epret_out, int32_t* eplen_out, int B, int K, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  wl::multi_step_kernel<<<blocks, threads, 0,
+  wl::multi_step_kernel<<<wl::blocks_for(B), wl::kBlockThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       c, weights, poses, state, params, actions, uniforms, normals,
       step_count, timers, ep_return, ep_len, state_out, step_out, timers_out,

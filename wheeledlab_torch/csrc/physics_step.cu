@@ -15,48 +15,44 @@
 // chip_smoke.py), 7.9 operations per byte at decimation 4 and 39 at 20 —
 // below the H100's float32 ridge of 67e12 / 3.35e12 = 20 at decimation 4
 // (bytes bind), above it at 20 (operations bind). At the play width (16
-// envs) and at widths of one wave neither bound is near: each thread's chain
-// of dependent operations sets the time (latency-bound), as for the fused
+// envs) and at widths of one wave neither bound is near: a lane's chain of
+// dependent operations sets the time (latency-bound), as for the fused
 // drift step.
 //
-// Design: one thread per env over a 1-D grid of 128-thread blocks, tail
-// masked. Rows are (rows, B) row-major, so thread b reads x[r*B + b] and a
-// warp's loads and stores are coalesced. State, params and targets stay in
-// registers through all substeps: state touches device memory once in and
-// once out. The substep is `substep.cuh::substep_flat`, shared with the
-// fused drift step.
+// Design: the fused drift step's grouping (`substep.cuh`): 4 adjacent lanes
+// per env, lane w owning wheel w, 4 warps (32 envs) a block over a 1-D grid,
+// the tail groups masked at their stores. Rows are (rows, B) row-major: a row
+// the group shares is one 32-byte sector a warp, a per-wheel row four, each
+// state row is stored once. A lane's share of state, params and targets
+// stays in registers through all substeps: state touches device memory once
+// in and once out. The substep is `substep.cuh::substep_flat`, shared with
+// the fused drift step.
 #include <cuda_runtime.h>
 
 #include "substep.cuh"
 
 namespace wl {
 
-__global__ void __launch_bounds__(128) physics_step_kernel(
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksPerSm)
+physics_step_kernel(
     const float* __restrict__ state, const float* __restrict__ params,
     const float* __restrict__ steer_t, const float* __restrict__ wheel_t,
     float* __restrict__ state_out, int B, float dt, float dt2, float half_dt,
     int decimation) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const LaneId id = lane_id(B);
   const size_t n = static_cast<size_t>(B);
 
-  float s[kNumState];
-  float p[kNumParam];
-  float st[2], wt[4];
-#pragma unroll
-  for (int r = 0; r < kNumState; ++r) s[r] = state[r * n + b];
-#pragma unroll
-  for (int r = 0; r < kNumParam; ++r) p[r] = params[r * n + b];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) st[k] = steer_t[k * n + b];
-#pragma unroll
-  for (int w = 0; w < 4; ++w) wt[w] = wheel_t[w * n + b];
+  LaneState s;
+  LaneParams p;
+  load_lane_state(state, n, id, s);
+  load_lane_params(params, n, id, p);
+  const float st = steer_t[(id.w & 1) * n + id.b];
+  const float wt = wheel_t[id.w * n + id.b];
 
   for (int i = 0; i < decimation; ++i)
-    substep_flat(s, p, st, wt, dt, dt2, half_dt);
+    substep_flat(s, p, id.w, st, wt, dt, dt2, half_dt);
 
-#pragma unroll
-  for (int r = 0; r < kNumState; ++r) state_out[r * n + b] = s[r];
+  store_lane_state(state_out, n, id, s);
 }
 
 }  // namespace wl
@@ -70,9 +66,7 @@ extern "C" int physics_step_launch(const float* state, const float* params,
                                    float dt2, float half_dt, int decimation,
                                    void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  wl::physics_step_kernel<<<blocks, threads, 0,
+  wl::physics_step_kernel<<<wl::blocks_for(B), wl::kBlockThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       state, params, steer_t, wheel_t, state_out, B, dt, dt2, half_dt,
       decimation);

@@ -10,9 +10,11 @@ each env's (p, p) terrain patch resident. Two pieces:
   CUDA tensors launch the kernel of `csrc/physics_step_hf.cu` (built at
   first use) or raise. It counts its kernel launches in `LAUNCHES`.
 
-Patch extraction (`PatchAtlas.extract_rows`) stays outside, in plain
-PyTorch, as it stays in XLA outside the reference's Pallas call. See
-`csrc/physics_step_hf.cu` for the kernel's bound and design.
+The kernel gives an env to 4 lanes (a wheel a lane) and keeps a block's
+patches in shared memory (`shared_bytes`, `patch_pitch`). Patch extraction
+(`PatchAtlas.extract_rows`) stays outside, in plain PyTorch, as it stays in
+XLA outside the reference's Pallas call. See `csrc/physics_step_hf.cu` for
+the kernel's bound and design.
 """
 
 from __future__ import annotations
@@ -29,9 +31,31 @@ from .checks import check_rows
 
 # Kernel launches made by `physics_step_hf` (CUDA tensors only).
 LAUNCHES = 0
-# The kernel's patch lives in shared memory, 64 threads x p*p floats a
-# block, at most 227 KB
-MAX_P = 30
+# Envs of one block of the kernel (`kEnvsPerBlock` in csrc/substep.cuh).
+ENVS_PER_BLOCK = 32
+# The kernel keeps its block's patches in shared memory (`shared_bytes`), at
+# most the 227 KB a block may opt in to (`kMaxSharedBytes`).
+MAX_SHARED_BYTES = 232448
+
+
+def patch_pitch(p: int) -> int:
+    """Row pitch of a (p, p) patch in the kernel's shared memory: the
+    smallest pitch >= p that is 2 modulo 4, so that the four cells of a
+    2 x 2 block fall into four different groups of banks. Mirror of
+    `patch_pitch` in csrc/substep_hf.cuh."""
+    return p + ((2 - p) & 3)
+
+
+def shared_bytes(p: int) -> int:
+    """Shared memory of one block of the kernel: its envs' patches, a
+    region a warp, cell (ix, iy) of env e of the warp at word
+    (ix * pitch + iy) * 8 + e of the region. Mirror of `patch_words` in
+    csrc/physics_step_hf.cu, in bytes."""
+    return p * patch_pitch(p) * ENVS_PER_BLOCK * 4
+
+
+# The largest patch side whose block fits: 42 (225,792 bytes).
+MAX_P = max(p for p in range(2, 64) if shared_bytes(p) <= MAX_SHARED_BYTES)
 
 
 class HfConstsC(ctypes.Structure):
@@ -99,8 +123,10 @@ def physics_step_hf(state, params, patch, org, steer_t, wheel_t, *,
                           ("patch", patch, p * p), ("org", org, 2),
                           ("steer_t", steer_t, 2), ("wheel_t", wheel_t, 4)):
         check_rows(name, x, rows, b, device)
-    if not 2 <= p <= MAX_P:
-        raise ValueError(f"patch side {p} outside [2, {MAX_P}]")
+    if p < 2 or shared_bytes(p) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"patch side {p} outside [2, {MAX_P}]: a block's patches must "
+            f"fit {MAX_SHARED_BYTES} bytes of shared memory")
     if device.type == "cpu":
         return physics_step_hf_rows(
             state, params, patch, org, steer_t, wheel_t, dt=dt,
