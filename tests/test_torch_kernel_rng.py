@@ -3,7 +3,9 @@ on the CPU: Philox4x32-10 against its published known answers and an
 arbitrary-precision rendition, the bit extraction and Box-Muller against the
 JAX reference's expressions (`wheeledlab_tpu/tasks/drift/fused.py:426-432`)
 on the same words, independence of the batch size, the moment bounds of
-`scripts/check_kernel_rng.py`, and the check script itself.
+`scripts/check_kernel_rng.py`, the check script itself, and a numpy model
+of how the 4 lanes of an env's group share the draws in the kernels
+(`csrc/philox.cuh::PhiloxGroupRows`).
 
 The kernels that draw these rows (`csrc/rng_blocks.cu`,
 `csrc/fused_drift_krng.cu`) only run on a GPU; `chip_smoke.py` holds them
@@ -206,6 +208,203 @@ class TestKernelSources:
         # precise libm only: the plain version uses torch.log / torch.cos
         assert "__logf" not in src and "__cosf" not in src
         assert "use_fast_math" not in " ".join(build.NVCC_FLAGS)
+
+
+def header_constants(name):
+    """The namespace-level `constexpr int` constants of a CUDA header of the
+    port, each expression evaluated with the ones before it."""
+    with open(os.path.join(build.CSRC, name)) as f:
+        src = f.read()
+    env = {}
+    for n, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
+                              re.M):
+        env[n] = eval(expr, {}, dict(env))  # noqa: S307  integer expressions
+    return env
+
+
+class GroupModel:
+    """numpy model of `philox.cuh::PhiloxGroupRows` for `b` envs, with the
+    lane-ownership constants parsed from the CUDA headers: in the round
+    whose first draw is F, lane L of an env's group computes Philox call
+    (F >> 2) + L; `philox_round` renames each lane's words by F & 3,
+    transposes them across the group with two butterfly stages of xor
+    shuffles (lanes w ^ 2, then w ^ 1) and shifts a lane whose word index
+    passes 3 one position on. Arrays are (lanes, ..., B); a value may be the
+    pair (computing call, word) in place of the word itself (`provenance`),
+    which tracks where each draw a lane uses was computed."""
+
+    def __init__(self, seed, b, provenance=False):
+        c = header_constants("philox.cuh")
+        self.lanes = header_constants("substep.cuh")["kLanesPerEnv"]
+        self.uniform_draw = c["kUniformDraw"]
+        self.u1_draw, self.u2_draw = c["kU1Draw"], c["kU2Draw"]
+        self.slots = c["kGroupSlots"]
+        self.uniform_rows = c["kRngUniformRows"]
+        self.normal_rows = c["kRngNormalRows"]
+        self.b, self.provenance = b, provenance
+        self.calls = []                      # (round's first draw, lane, call)
+        last = (self.u2_draw >> 2) + self.lanes
+        if provenance:
+            q, w = np.meshgrid(np.arange(last), np.arange(4), indexing="ij")
+            self.words = np.broadcast_to((100 * q + w)[..., None],
+                                         (last, 4, b))
+        else:
+            self.words = kr.philox_words(seed, b, 4 * last).numpy().astype(
+                np.int64).reshape(last, 4, b)
+
+    def call(self, first):
+        """(lanes, 4, B): each lane's words of its call in this round."""
+        q = (first >> 2) + np.arange(self.lanes)
+        self.calls += [(first, lane, int(c)) for lane, c in enumerate(q)]
+        return self.words[q].copy()
+
+    def transpose(self, v):
+        lanes = np.arange(self.lanes)
+        v = v.copy()
+        m = self.lanes // 2
+        while m >= 1:
+            hi = ((lanes & m) != 0)[:, None]
+            for j in range(4):
+                if j & m:
+                    continue
+                send = np.where(hi, v[:, j], v[:, j | m])
+                got = send[lanes ^ m]                  # __shfl_xor_sync
+                v[:, j], v[:, j | m] = (np.where(hi, got, v[:, j]),
+                                        np.where(hi, v[:, j | m], got))
+            m //= 2
+        return v
+
+    def round(self, first):
+        """`philox_round<first>`: (lanes, slots, B), slot k of lane w the
+        word of draw first + 4 k + w (-1 where none)."""
+        shift = first & 3
+        v = self.call(first)
+        t = self.transpose(v[:, [(j + shift) & 3 for j in range(4)]])
+        carry = (np.arange(self.lanes) + shift > 3)[:, None]
+        col = np.full((self.lanes, self.slots, self.b), -1, np.int64)
+        for k in range(self.slots):
+            nxt = t[:, k + 1] if k + 1 < 4 else np.full_like(t[:, 0], -1)
+            col[:, k] = np.where(carry, nxt, t[:, k])
+        return col
+
+    def uniform(self, u, row):
+        """`uniform(row)` on every lane: lane (j >> 2) - (F >> 2) sends word
+        j & 3 of its uniform-round call `u`; (lanes, B)."""
+        j = self.uniform_draw + row
+        owner = (j >> 2) - (self.uniform_draw >> 2)
+        return np.broadcast_to(u[owner, j & 3], (self.lanes, self.b))
+
+
+def bits(words):
+    return kr.bits_to_uniform(torch.from_numpy(np.array(words, np.int64)))
+
+
+class TestGroupSchedule:
+    """The group generator's schedule, modelled in numpy from the constants
+    of `csrc/philox.cuh` and `csrc/substep.cuh`, reproduces `philox_blocks`
+    for every (env, row): the rows K4 reads (uniform rows on every lane, the
+    normal of row i on lane i & 3) and the blocks K5b stores (lane w rows
+    4 k + w), bit for bit."""
+
+    def test_the_rounds_are_the_reference_draw_blocks(self):
+        c = header_constants("philox.cuh")
+        assert (c["kUniformDraw"], c["kU1Draw"], c["kU2Draw"]) == (
+            0, kr.NUM_UNIFORM, kr.NUM_UNIFORM + kr.NUM_NORMAL)
+        assert (c["kRngUniformRows"], c["kRngNormalRows"]) == (
+            kr.NUM_UNIFORM, kr.NUM_NORMAL)
+        lanes = header_constants("substep.cuh")["kLanesPerEnv"]
+        # a lane's rows 4 k + w cover every row of both blocks
+        assert lanes == 4 and c["kGroupSlots"] * lanes >= kr.NUM_NORMAL
+        assert kr.NUM_UNIFORM % lanes == 0
+
+    def test_the_butterfly_is_a_transpose(self):
+        model = GroupModel(seed_tensor(0), 3)
+        v = np.random.default_rng(0).integers(0, 2**32, (4, 4, 3))
+        np.testing.assert_array_equal(model.transpose(v),
+                                      v.transpose(1, 0, 2))
+
+    @pytest.mark.parametrize("noise", [True, False])
+    @pytest.mark.parametrize("b", [1, 7, 1000, 4096])
+    def test_reproduces_philox_blocks(self, b, noise):
+        seed = seed_tensor(1234 + b)
+        want_u, want_n = kr.philox_blocks(seed, b, noise)
+        model = GroupModel(seed, b)
+        lanes = model.lanes
+        # K4: the uniform round, drawn before the step; every lane holds
+        # every uniform row
+        u = model.call(model.uniform_draw)
+        for row in range(model.uniform_rows):
+            got = model.uniform(u, row)
+            for lane in range(lanes):
+                assert torch.equal(bits(got[lane]), want_u[row])
+        # K5b: the uniform round transposed, lane w storing rows 4 k + w
+        block_u = torch.full((model.uniform_rows, b), -1.0)
+        col = model.round(model.uniform_draw)
+        for k, row0 in enumerate(range(0, model.uniform_rows, lanes)):
+            for lane in range(lanes):
+                block_u[row0 + lane] = bits(col[lane, k])
+        assert torch.equal(block_u, want_u)
+        if not noise:
+            # K4 draws no normal: only the uniform round runs
+            assert {f for f, _, _ in model.calls} == {model.uniform_draw}
+            assert not want_n.any()
+            return
+        # the normal rounds; lane w computes the normals of rows 4 k + w,
+        # which K4 reads on lane i & 3 and K5b stores from lane w
+        c1 = model.round(model.u1_draw)
+        c2 = model.round(model.u2_draw)
+        block_n = torch.full((model.normal_rows, b), float("nan"))
+        for k in range(model.slots):
+            for lane in range(lanes):
+                row = lanes * k + lane
+                if row >= model.normal_rows:
+                    continue
+                assert (c1[lane, k] >= 0).all() and (c2[lane, k] >= 0).all()
+                block_n[row] = kr.box_muller(bits(c1[lane, k]),
+                                             bits(c2[lane, k]))
+        assert torch.equal(block_n, want_n)
+
+    def test_each_draw_is_computed_by_one_lane(self):
+        """Every draw a lane uses comes from the one call that holds it,
+        computed by one lane of one round; the calls computed twice are the
+        two where consecutive rounds overlap (3, the uniform round's last
+        lane, and 6, taken half by the u1 and half by the u2 round), and no
+        call beyond the 10 the 40 draws need is made."""
+        model = GroupModel(seed_tensor(0), 1, provenance=True)
+        u = model.call(model.uniform_draw)
+        used = {}
+
+        def use(draw, label, who):
+            call, word = divmod(int(label), 100)
+            assert 4 * call + word == draw, (draw, label)
+            used.setdefault(draw, set()).add(who)
+
+        for row in range(model.uniform_rows):
+            draw = model.uniform_draw + row
+            owner = (draw >> 2) - (model.uniform_draw >> 2)
+            for lane in range(model.lanes):
+                use(draw, model.uniform(u, row)[lane, 0],
+                    (model.uniform_draw, owner))
+        for first, rows in ((model.u1_draw, model.normal_rows),
+                            (model.u2_draw, model.normal_rows)):
+            col = model.round(first)
+            for k in range(model.slots):
+                for lane in range(model.lanes):
+                    row = model.lanes * k + lane
+                    if row < rows:
+                        call = int(col[lane, k, 0]) // 100
+                        use(first + row, col[lane, k, 0],
+                            (first, call - (first >> 2)))
+        assert sorted(used) == list(range(40))
+        assert all(len(who) == 1 for who in used.values())
+        computed = {}
+        for first, lane, call in model.calls:
+            computed.setdefault(call, set()).add((first, lane))
+        assert sorted(computed) == list(range(10))
+        repeated = {c for c, who in computed.items() if len(who) > 1}
+        assert repeated == {3, 6}
+        assert computed[3] == {(model.uniform_draw, 3), (model.u1_draw, 0)}
+        assert computed[6] == {(model.u1_draw, 3), (model.u2_draw, 0)}
 
 
 if __name__ == "__main__":

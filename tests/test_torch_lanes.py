@@ -50,7 +50,7 @@ torch.set_num_threads(1)
 TAIL_WIDTHS = (1, 7, 1000)
 # sources whose kernel works an env with 4 lanes
 LANE_SOURCES = ("fused_drift", "fused_drift_krng", "multi_step",
-                "physics_step", "physics_step_hf")
+                "physics_step", "physics_step_hf", "rng_blocks")
 
 
 def source(name):

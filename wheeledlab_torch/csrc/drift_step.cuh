@@ -14,10 +14,13 @@
 //
 // The random rows come from a "row source" the step is templated on:
 // `GlobalRows` reads the (12, B) uniform and (14, B) normal blocks from
-// device memory, `philox.cuh::PhiloxRows` draws them in registers. A row is
-// asked for only where the step uses it: two uniform rows (the second push
-// event moves only the yaw rate) and two normal rows (the action rows of the
-// observation carry no noise) are never touched.
+// device memory, `philox.cuh::PhiloxGroupRows` draws them in registers, the
+// 4 lanes of a group together. A uniform row must hold the same bits in all
+// 4 lanes; normal row i need only be right in lane i & 3, the one lane that
+// stores observation row i. A row is asked for only where the step uses it:
+// two uniform rows (the second push event moves only the yaw rate) and two
+// normal rows (the action rows of the observation carry no noise) are never
+// touched.
 //
 // Design (who computes what). The substeps are `substep.cuh`'s: a wheel a
 // lane. The action map gives each lane the target of its own wheel and of

@@ -16,19 +16,30 @@
 // random words per env that the step uses, so 74 words in and 55 out, 516
 // bytes per env: 8.5 MB at 16384 envs, about 2.5 us at the H100's 3.35 TB/s;
 // 0.53 MB, about 0.16 us, at 1024 envs. On top of the step's ~3400 float
-// operations it does 10 Philox calls per env (each 10 rounds of 2 wide
+// operations an env needs 10 Philox calls (each 10 rounds of 2 wide
 // multiplies, 2 low multiplies, 4 xors and 2 adds: 1000 integer operations)
 // and 12 Box-Muller normals; both stay far below the card's rates, so bytes
 // bound it, and like `fused_drift.cu` it runs at the latency of a lane's
-// dependent chain.
+// dependent chain at 1024 envs and at the rate its warps issue instructions
+// at 16384.
 //
 // Design: `fused_drift.cu`'s (4 lanes per env, a wheel a lane, 4 warps a
-// block), with `PhiloxRows` as the step's row source. A draw depends only on
-// (seed, env, draw index), so the 4 lanes of a group draw the same rows, each
-// for itself: the generator's integer work is repeated, nothing is sent
-// between lanes, and the bound counts it once. Rows are drawn where the step
-// reads them, so the 4 rows it never reads cost nothing, and with observation
-// noise off only the 3 Philox calls of the uniform rows run.
+// block), with `philox.cuh::PhiloxGroupRows` as the step's row source. The
+// group draws its env's rows together, in three rounds of one Philox call a
+// lane (uniform rows, `u1`, `u2`), so no lane repeats another's draws: a
+// uniform row comes by one shuffle from the lane whose call holds it, so
+// all 4 lanes hold the same bits for the pushes, timers and spawn; the
+// normal draws are transposed within the group (4 shuffles a round) so that
+// lane w holds the draws of observation rows 4 k + w, the rows it stores,
+// and computes only those 3 normals. The rows are drawn before the step, in
+// one straight block whose latency hides under the step's state and
+// parameter loads and which the compiler inlines once (drawn where the step
+// reads them, each reading site carried its own copy of the drawing code,
+// which more than doubled the kernel's instructions and measured slower:
+// PERF.md). With observation noise off only the uniform round runs, and the
+// normals of the action rows, which carry no noise, are not drawn. The
+// words, the extraction and Box-Muller are unchanged, so the rows are
+// bit-equal to `rng_blocks.cu`'s.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,6 +47,17 @@
 #include "philox.cuh"
 
 namespace wl {
+
+// Whether the step reads a normal row of slot k (rows 4 k .. 4 k + 3; a row
+// with noise std 0 is not read).
+__device__ __forceinline__ bool reads_normal_slot(const FusedDriftConsts& c,
+                                                  int k) {
+  bool any = false;
+#pragma unroll
+  for (int i = kLanesPerEnv * k; i < kLanesPerEnv * (k + 1); ++i)
+    if (i < kObsRows) any = any || c.obs_std[i] != 0.f;
+  return any;
+}
 
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocksPerSm)
 fused_drift_krng_kernel(
@@ -50,8 +72,18 @@ fused_drift_krng_kernel(
     float* __restrict__ epret_out, int32_t* __restrict__ eplen_out, int B) {
   const LaneId id = lane_id(B);
   const size_t n = static_cast<size_t>(B);
-  PhiloxRows rows(static_cast<uint32_t>(__ldg(seed)),
-                  static_cast<uint32_t>(id.b));
+  PhiloxGroupRows rows(static_cast<uint32_t>(__ldg(seed)),
+                       static_cast<uint32_t>(id.b), id.w);
+  // the rows are drawn before the step, while its state and parameter loads
+  // are in flight; the last slot (the action rows, which carry no noise in
+  // the drift tasks) only where it is read
+  rows.draw_uniform();
+  if (c.enable_corruption) {
+    if (reads_normal_slot(c, kGroupSlots - 1))
+      rows.draw_normals<kGroupSlots>();
+    else
+      rows.draw_normals<kGroupSlots - 1>();
+  }
   fused_step_lane(c, weights, poses, state, params, actions, rows, step_count,
                   timers, ep_return, ep_len, state_out, obs_out, out, step_out,
                   timers_out, epret_out, eplen_out, id, n);

@@ -5,17 +5,25 @@
 // step, written out as a (12, B) uniform block and a (14, B) normal block so
 // that their distribution can be checked. Here the blocks are exactly the
 // rows that `fused_drift_krng.cu` draws for the same seed: both use
-// `philox.cuh::PhiloxRows`, so env b's draw j is the same word in both. Its
-// plain PyTorch version, and the oracle it is tested against word for word,
-// is `wheeledlab_torch/ops/kernel_rng.py::philox_blocks`.
+// `philox.cuh::PhiloxGroupRows`, so env b's draw j is the same word in both.
+// Its plain PyTorch version, and the oracle it is tested against word for
+// word, is `wheeledlab_torch/ops/kernel_rng.py::philox_blocks`.
 //
 // Bound: it reads one word and writes 26 words, 104 bytes, per env: 1.7 MB at
-// 16384 envs, about 0.51 us at the H100's 3.35 TB/s. Per env it does 11
-// Philox calls (1100 integer operations) and 14 Box-Muller normals, which
-// stay below the card's rates, so bytes bound it.
+// 16384 envs, about 0.51 us at the H100's 3.35 TB/s. Per env it needs 10
+// Philox calls (1000 integer operations) and 14 Box-Muller normals, which
+// stay below the card's rates, so bytes bound it; at these widths a launch
+// is a few us, the latency of one lane's chain above the launch floor.
 //
-// Design: one thread per env over a 1-D grid, tail masked; a warp's stores of
-// one row are coalesced.
+// Design: 4 lanes an env, the group of `substep.cuh` (8 envs a warp, 128
+// threads a block), so that 4 times the warps share an env's chain (one
+// thread per env left 32 blocks on 32 of the 132 SMs at 4096 envs). The
+// group draws in three rounds of one Philox call a lane
+// (`PhiloxGroupRows`), and lane w stores uniform rows w, w + 4, w + 8 and
+// normal rows 4 k + w, computing only those normals. A warp's store of one
+// row index covers 8 consecutive envs: 4 rows x 32 bytes, whole sectors
+// when B is a multiple of 8. A tail group draws for a copy of the last env
+// and stores nothing, so every lane reaches every shuffle.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,19 +31,31 @@
 
 namespace wl {
 
-__global__ void __launch_bounds__(128) rng_blocks_kernel(
+constexpr int kUniformSlots = kRngUniformRows / kLanesPerEnv;
+constexpr int kNormalSlots =
+    (kRngNormalRows + kLanesPerEnv - 1) / kLanesPerEnv;
+static_assert(kUniformSlots * kLanesPerEnv == kRngUniformRows &&
+                  kNormalSlots <= kGroupSlots,
+              "a lane's rows are 4 k + w");
+
+__global__ void __launch_bounds__(kBlockThreads) rng_blocks_kernel(
     const int32_t* __restrict__ seed, float* __restrict__ uniforms,
     float* __restrict__ normals, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const LaneId id = lane_id(B);
   const size_t n = static_cast<size_t>(B);
-  PhiloxRows rows(static_cast<uint32_t>(__ldg(seed)),
-                  static_cast<uint32_t>(b));
+  PhiloxGroupRows rows(static_cast<uint32_t>(__ldg(seed)),
+                       static_cast<uint32_t>(id.b), id.w);
+  rows.draw_own_uniform();
+  rows.draw_normals<kNormalSlots>();
+  if (!id.live) return;
 #pragma unroll
-  for (int r = 0; r < kRngUniformRows; ++r)
-    uniforms[r * n + b] = rows.uniform(r);
+  for (int k = 0; k < kUniformSlots; ++k)
+    uniforms[(kLanesPerEnv * k + id.w) * n + id.b] = rows.own_uniform(k);
 #pragma unroll
-  for (int r = 0; r < kRngNormalRows; ++r) normals[r * n + b] = rows.normal(r);
+  for (int k = 0; k < kNormalSlots; ++k) {
+    const int row = kLanesPerEnv * k + id.w;
+    if (row < kRngNormalRows) normals[row * n + id.b] = rows.own_normal(k);
+  }
 }
 
 }  // namespace wl
@@ -46,9 +66,7 @@ __global__ void __launch_bounds__(128) rng_blocks_kernel(
 extern "C" int rng_blocks_launch(const int32_t* seed, float* uniforms,
                                  float* normals, int B, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  wl::rng_blocks_kernel<<<blocks, threads, 0,
+  wl::rng_blocks_kernel<<<wl::blocks_for(B), wl::kBlockThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       seed, uniforms, normals, B);
   return static_cast<int>(cudaGetLastError());
