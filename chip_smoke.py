@@ -19,7 +19,8 @@ printing its final line:
              time-outs firing, and on the state an env starts from (every
              car standing);
              K2, the flat physics step (the `substep_soa` loop), at 16384,
-             1024, 1000 and 16 envs, decimation 4 and 20, both robots;
+             1024, 1000 and 16 envs, decimation 4 and 20, both robots, bit
+             for bit;
              K3, the heightfield physics step (the `substep_soa_hf` loop), at
              16384, 1024, 1000, 7 and 1 envs, decimation 10, p = 12, with
              states over the mounds of a generated terrain, wheels in and
@@ -36,17 +37,31 @@ printing its final line:
              against K1 fed K5b's rows;
              K5a, the K-step resident rollout (K chained `drift_step_rows`),
              at K = 1, 2, 4, 8 and the same widths, both robots, and against
-             K chained K1 launches.
+             K chained K1 launches;
+             K2 at the visual task's shape (512 and 7 envs, decimation 20,
+             dt 0.01, MuSHR with the task's DR on ground friction 2.0), bit
+             for bit.
+   visual  — `action_to_targets` on the card equal to its CPU result bit
+             for bit (rwd, 4wd, ackermann; 4096 actions); the renderers
+             (`render_fast` cropped, `render`, `render_rgb`) on the card
+             against the CPU at 512 reset and 512 tilted poses of the full
+             colored map: at most 1e-3 of the pixels may differ, each with
+             its hit point within 1e-4 m of a cell edge.
 4. train   — `wheeledlab_torch.rl.runner.train` for 3 iterations at full
-             width (1024 envs, 128 steps, 5 epochs x 4 minibatches): on
-             RSS_DRIFT_CONFIG, where K1 must carry every env step (384
-             launches); on RSS_DRIFT_CONFIG with WHEELEDLAB_KERNEL_RNG=1,
-             where K4 must (384 launches, 0 of K1); and on RSS_ELEV_CONFIG
-             (obs 689), where K3 must (384 launches); no other kernel may
+             width (128 steps, 5 epochs x 4 minibatches): on
+             RSS_DRIFT_CONFIG (1024 envs), where K1 must carry every env
+             step (384 launches); on RSS_DRIFT_CONFIG with
+             WHEELEDLAB_KERNEL_RNG=1, where K4 must (384 launches, 0 of K1);
+             on RSS_ELEV_CONFIG (1024 envs, obs 689), where K3 must (384
+             launches); and on RSS_VISUAL_CONFIG (512 envs, obs 3208, colored
+             world), where K2 must (384 launches); no other kernel may
              launch.
 5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
              its play variant for 200 steps at 16 envs through the generic
-             step, where K2 must carry every step (200 launches).
+             step, where K2 must carry every step (200 launches); and on the
+             visual run, 50 steps at 16 envs with `--video` (50 K2 launches),
+             which must write the top-down video and env 0's policy-view
+             clip.
 6. scripts — `scripts.check_kernel_rng` (K5b; must pass),
              `scripts.limiter_probe` at 16384 envs, K = 1, 2, 4, 8, with a
              0.5 s window (K5a carries every call) and `scripts.mppi_demo`
@@ -62,7 +77,11 @@ printing its final line:
              against K1 plus the `torch.rand` and `torch.randn` calls that
              feed it, and its premium over K1; K5b against those two calls
              alone and beside the launch floor (an empty kernel's graph
-             time).
+             time); K2 at the visual shape; and where a visual env step's
+             time goes (the whole step, its observation: render,
+             augmentation and noise, and its K2 launch): device ms and
+             launches from torch.profiler's record of the card, beside the
+             wall ms of the same calls unprofiled.
 
 Every launch counter is set to 0 just before a path is driven and read just
 after. It imports nothing of JAX. The last line is the result object.
@@ -77,8 +96,8 @@ import subprocess
 import tempfile
 import time
 
-# nvcc's default FMA contraction moves K1's and K2's floats by a few ulp
-# against the plain version (K3 is built without it and matches exactly);
+# nvcc's default FMA contraction moves K1's floats by a few ulp against the
+# plain version (K2, K3 and K5a are built without it and match exactly);
 # integers and done flags must match exactly.
 FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor-
@@ -191,6 +210,17 @@ def build_phase():
     return registers
 
 
+def euler_quat(roll, pitch, yaw):
+    """The (w, x, y, z) rows of the quaternions of numpy euler angles."""
+    import numpy as np
+
+    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
+    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
+    cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
+    return [cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
+            cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr]
+
+
 def step_inputs(robot, b, seed, device, **task_kw):
     """Random but realistic inputs of one fused drift step, made with numpy
     from `seed`: states all over and beyond the track, DR'd params, step
@@ -216,12 +246,7 @@ def step_inputs(robot, b, seed, device, **task_kw):
     params = pack_params(task.init_params(gen, b, "cpu"), 1.0)
 
     u = lambda lo, hi, *s: rng.uniform(lo, hi, s or (b,))
-    roll, pitch, yaw = u(-0.1, 0.1), u(-0.1, 0.1), u(-math.pi, math.pi)
-    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
-    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
-    cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
-    quat = [cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
-            cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr]
+    quat = euler_quat(u(-0.1, 0.1), u(-0.1, 0.1), u(-math.pi, math.pi))
     state = np.stack([
         u(-2.5, 2.5), u(-2.5, 2.5), 0.06 + u(-0.01, 0.01), *quat,
         u(-3, 3), u(-3, 3), u(-0.2, 0.2),
@@ -408,12 +433,7 @@ def hf_inputs(b, seed, device, p=None):
     u = lambda lo, hi, *shape: rng.uniform(lo, hi, shape or (b,))
     xy = f32(u(-19, 19, b, 2))
     ground = atlas.lookup(xy).cpu().numpy()
-    roll, pitch, yaw = u(-0.3, 0.3), u(-0.3, 0.3), u(-math.pi, math.pi)
-    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
-    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
-    cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
-    quat = [cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
-            cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr]
+    quat = euler_quat(u(-0.3, 0.3), u(-0.3, 0.3), u(-math.pi, math.pi))
     state = f32(np.stack([
         xy[:, 0].cpu().numpy(), xy[:, 1].cpu().numpy(),
         ground + REST_H + u(-0.03, 0.12), *quat,
@@ -502,12 +522,16 @@ def physics_phase(device):
                 k = dict(dt=0.005, decimation=dec)
                 got = physics_step(**x, **k)
                 torch.cuda.synchronize()
-                err, bad = compare_rows(got, physics_step_rows(**x, **k))
+                want = physics_step_rows(**x, **k)
+                err, bad = compare_rows(got, want)
+                differ = envs_not_bit_equal([got], [want])
                 print(f"K2 {robot} B={b} decimation {dec}: max_abs_err "
-                      f"{err:.3e}, envs beyond tolerance {bad}", flush=True)
+                      f"{err:.3e}, envs beyond tolerance {bad}, envs not "
+                      f"bit-equal {differ}", flush=True)
                 errs["K2"] = max(errs["K2"], err)
-                if bad:
-                    failures.append(f"K2 {robot} B={b} dec {dec}: {bad}")
+                if bad or differ:
+                    failures.append(f"K2 {robot} B={b} dec {dec}: {bad} "
+                                    f"beyond, {differ} not bit-equal")
                 cases[("K2", robot, b, dec)] = (x, k)
     # K3 is built without FMA contraction and must equal its plain version
     # bit for bit: p = 12 at every width; at 1024 envs p = 30, where the
@@ -745,10 +769,10 @@ def check_launches(path, got, want):
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
 
-def train_run(device, logs, config, run_name, obs_dim, kernel):
-    """3 full-width training iterations of `config`; `kernel` must carry
-    every env step and no other kernel may launch. Returns (launches,
-    iteration ms)."""
+def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024):
+    """3 full-width training iterations of `config` (`envs` envs); `kernel`
+    must carry every env step and no other kernel may launch. Returns
+    (launches, iteration ms)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
@@ -766,7 +790,7 @@ def train_run(device, logs, config, run_name, obs_dim, kernel):
         cfg = override(cfg, k, v)
     assert (cfg.num_envs, cfg.agent.num_steps_per_env,
             cfg.agent.num_learning_epochs,
-            cfg.agent.num_mini_batches) == (1024, 128, 5, 4)
+            cfg.agent.num_mini_batches) == (envs, 128, 5, 4)
     reset_launches()
     state, last = train(cfg)
     torch.cuda.synchronize()
@@ -781,7 +805,7 @@ def train_run(device, logs, config, run_name, obs_dim, kernel):
             if not math.isfinite(row[k]):
                 raise AssertionError(f"{k} not finite: {row[k]}")
     obs = state.obs
-    if tuple(obs.shape) != (1024, obs_dim) or not torch.isfinite(obs).all():
+    if tuple(obs.shape) != (envs, obs_dim) or not torch.isfinite(obs).all():
         raise AssertionError("final observation malformed")
     prev, iter_ms = 0.0, []
     for row in rows:
@@ -806,7 +830,9 @@ def train_phase(device, logs):
     finally:
         del os.environ["WHEELEDLAB_KERNEL_RNG"]
     elev = train_run(device, logs, "RSS_ELEV_CONFIG", "elev", 689, "K3")
-    return drift, krng, elev
+    visual = train_run(device, logs, "RSS_VISUAL_CONFIG", "visual", 3208,
+                       "K2", envs=VISUAL_ENVS)
+    return drift, krng, elev, visual
 
 
 def play_phase(logs):
@@ -838,6 +864,321 @@ def play_phase(logs):
         raise AssertionError(f"play metrics {saved}")
     print(f"play: {steps} steps x {envs} envs in {wall:.2f} s; {saved}",
           flush=True)
+    return steps
+
+
+VISUAL_ENVS = 512
+# the pixel rule of the renders: at most PIXEL_FRAC of the pixels may
+# differ, each where its hit point lies within EDGE_M of a cell edge
+PIXEL_FRAC = 1e-3
+EDGE_M = 1e-4
+
+
+def visual_flat_inputs(b, seed, device):
+    """Inputs of one K2 step at the visual task's shape, made with numpy
+    from `seed`: MUSHR_SUS_CFG params with the task's DR drawn (friction
+    buckets in 0.4-0.6, base mass 1-3 kg, wheel inertia from a wheel mass of
+    0.01-0.3 kg) on ground friction 2.0; states all over the 250 m map, level
+    to tilted by 0.1 rad, standing to moving, wheels spinning; the 4wd
+    targets of random policy actions. Returns (inputs, step constants)."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.sim.actions import action_to_targets
+    from wheeledlab_torch.sim.soa import pack_params
+    from wheeledlab_torch.tasks.visual.task import (
+        VisualTaskCfg, make_visual_task,
+    )
+
+    rng = np.random.default_rng(seed)
+    task = make_visual_task(VisualTaskCfg(num_envs=b), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = pack_params(task.init_params(gen, b, device),
+                         task.terrain.friction)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, shape or (b,))
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    state = f32(np.stack([
+        u(-120, 120), u(-120, 120), 0.1 + u(-0.04, 0.04),
+        *euler_quat(u(-0.1, 0.1), u(-0.1, 0.1), u(-math.pi, math.pi)),
+        u(-3, 3), u(-3, 3), u(-0.3, 0.3), u(-0.5, 0.5), u(-0.5, 0.5),
+        u(-3, 3), *u(-10, 80, 4, b), *u(-0.5, 0.5, 2, b),
+        *u(-2, 2, 2, b)]))
+    state[7:13, : b // 8] = 0.0                   # some cars standing
+    steer_t, wheel_t = action_to_targets(f32(u(-1, 1, b, 2)),
+                                         task.cfg.action)
+    inputs = dict(state=state, params=params, steer_t=steer_t.T.contiguous(),
+                  wheel_t=wheel_t.T.contiguous())
+    return inputs, dict(dt=task.cfg.sim_dt, decimation=task.cfg.decimation)
+
+
+def visual_kernel_phase(device):
+    """K2 at the visual task's shape (decimation 20, dt 0.01) against its
+    plain version, bit for bit, at 512 and 7 envs."""
+    import torch
+
+    from wheeledlab_torch.ops.physics_step import (
+        physics_step, physics_step_rows,
+    )
+
+    phase("kernel (K2 at the visual shape)")
+    max_err, cases, failures = 0.0, {}, []
+    for b in (VISUAL_ENVS, 7):
+        x, k = visual_flat_inputs(b, seed=b + 11, device=device)
+        got = physics_step(**x, **k)
+        torch.cuda.synchronize()
+        want = physics_step_rows(**x, **k)
+        err, bad = compare_rows(got, want)
+        differ = envs_not_bit_equal([got], [want])
+        # packed rows: mass 0, wheel inertia 35, tire mu x ground 36-39
+        p = x["params"]
+        span = lambda r: f"{r.min().item():.4g}-{r.max().item():.4g}"
+        print(f"K2 visual B={b} decimation {k['decimation']} dt {k['dt']}: "
+              f"max_abs_err {err:.3e}, envs beyond tolerance {bad}, envs not "
+              f"bit-equal {differ}; mass {span(p[0])}, wheel inertia "
+              f"{span(p[35])}, tire mu x ground {span(p[36:40])}",
+              flush=True)
+        max_err = max(max_err, err)
+        if bad or differ:
+            failures.append(f"K2 visual B={b}: {bad} beyond, {differ} not "
+                            f"bit-equal")
+        cases[b] = (x, k)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return max_err, cases
+
+
+def action_map_phase():
+    """`action_to_targets` on the card against the CPU for every drivetrain,
+    on 4096 actions uniform in [-1, 1]. The card's `tanf` and `atanf` and
+    the host's `torch.tan`, `torch.atan` and `torch.sqrt` round some
+    arguments an ulp apart (the host's float32 square root is not correctly
+    rounded: numpy's agrees with the card's), and the maps go through them;
+    so the CPU side is run a second time with the card's `tan`, `atan` and
+    `sqrt`, and then every target must be the same bits: what is left is
+    the maps' own arithmetic (a tensor divided by a Python float on the card
+    is multiplied by the reciprocal: `utils/math.py::div` divides). The
+    libm differences are counted and printed."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.assets.robots import (
+        MUSHR_4WD_ACTION, MUSHR_RWD_ACTION,
+    )
+    from wheeledlab_torch.sim.actions import action_to_targets
+
+    phase("action maps (CUDA against the CPU)")
+    raw = torch.as_tensor(np.random.default_rng(5).uniform(
+        -1, 1, (4096, 2)).astype(np.float32))
+    on_card = lambda f: (lambda x: f(x) if x.is_cuda else f(x.cuda()).cpu())
+    unequal = {}
+    for cfg in (MUSHR_RWD_ACTION, MUSHR_4WD_ACTION,
+                MUSHR_RWD_ACTION.replace(drivetrain="ackermann")):
+        got = [g.cpu() for g in action_to_targets(raw.cuda(), cfg)]
+        host = action_to_targets(raw, cfg)
+        with mock.patch.object(torch, "tan", on_card(torch.tan)), \
+                mock.patch.object(torch, "atan", on_card(torch.atan)), \
+                mock.patch.object(torch, "sqrt", on_card(torch.sqrt)):
+            card_libm = action_to_targets(raw, cfg)
+        libm = [int((g != w).sum()) for g, w in zip(got, host)]
+        left = [int((g != w).sum()) for g, w in zip(got, card_libm)]
+        unequal[cfg.drivetrain] = sum(left)
+        print(f"{cfg.drivetrain}: unequal elements with the card's tan, "
+              f"atan and sqrt on both sides: steer {left[0]} of "
+              f"{got[0].numel()}, "
+              f"wheel {left[1]} of {got[1].numel()}; with each side's own "
+              f"libm: steer {libm[0]}, wheel {libm[1]}", flush=True)
+    if any(unequal.values()):
+        raise AssertionError(f"action maps differ from the CPU: {unequal}")
+    # the fault this check is for: with the rwd map dividing by a Python
+    # float again, the card's wheel targets must leave the CPU's
+    from wheeledlab_torch.sim import actions
+
+    with mock.patch.object(actions, "div", lambda x, c: x / c):
+        wheel = action_to_targets(raw.cuda(), MUSHR_RWD_ACTION)[1].cpu()
+        caught = int((wheel != action_to_targets(raw, MUSHR_RWD_ACTION)[1])
+                     .sum())
+    print(f"rwd dividing by a Python float: unequal wheel elements {caught} "
+          f"of {wheel.numel()}", flush=True)
+    if not caught:
+        raise AssertionError("the check does not see a division by a float")
+    return unequal, caught
+
+
+def pixel_rule(got, want, hx, hy, cell, width, height, name):
+    """Fraction of pixels that differ between two renders, and how many of
+    them lie off the cell edges; raises unless the fraction is at most
+    PIXEL_FRAC and none lies off the edges."""
+    import torch
+
+    differ = (got.cpu() != want)
+    if differ.ndim > hx.ndim:                              # RGB channels
+        differ = differ.any(-1)
+    u = (hx.double() + width / 2) / cell
+    v = (hy.double() + height / 2) / cell
+    edge = (((u - u.round()).abs() * cell < EDGE_M)
+            | ((v - v.round()).abs() * cell < EDGE_M))
+    frac = differ.double().mean().item()
+    off_edge = int((differ & ~edge).sum())
+    print(f"{name}: pixels that differ {frac:.3e} ({int(differ.sum())} of "
+          f"{differ.numel()}), off a cell edge {off_edge}", flush=True)
+    if frac > PIXEL_FRAC or off_edge:
+        raise AssertionError(f"{name}: {frac} of the pixels differ, "
+                             f"{off_edge} off a cell edge")
+    return frac
+
+
+def render_phase(device):
+    """The renderers on the card against the CPU, by the pixel rule, at the
+    512 poses of a reset of the full 500 x 500 colored map and at 512 tilted
+    poses anywhere on it. Returns the largest fraction of differing
+    pixels."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.envs.env import WheeledEnv
+    from wheeledlab_torch.tasks.visual import camera
+    from wheeledlab_torch.tasks.visual.task import (
+        VisualTaskCfg, make_visual_task,
+    )
+
+    phase("renderer (CUDA against the CPU)")
+    cfg = VisualTaskCfg(num_envs=VISUAL_ENVS, color_sampling=True)
+    gpu, cpu = make_visual_task(cfg, device), make_visual_task(cfg, "cpu")
+    state, _ = WheeledEnv(gpu, device=device, seed=0).reset()
+    b, rng = VISUAL_ENVS, np.random.default_rng(17)
+    u = lambda lo, hi: rng.uniform(lo, hi, b)
+    tilted = (np.stack([u(-120, 120), u(-120, 120), u(0.05, 0.3)], -1),
+              np.stack(euler_quat(u(-0.3, 0.3), u(-0.3, 0.3),
+                                  u(-math.pi, math.pi)), -1))
+    crop = camera.HEIGHT // 3
+    atlases = (camera.ColorMapAtlas.build(gpu.colormap),
+               camera.ColorMapAtlas.build(cpu.colormap))
+    cm = cpu.colormap
+    worst = 0.0
+    for label, (pos, quat) in (
+            ("reset", (state.vehicle.pos.cpu(), state.vehicle.quat.cpu())),
+            ("tilted", tuple(torch.as_tensor(a.astype(np.float32))
+                             for a in tilted))):
+        gp, gq = pos.to(device), quat.to(device)
+        _, fx, fy, _ = camera.ground_hits_planar(pos, quat, crop)
+        hit, _, _ = camera.ground_hits(pos, quat)
+        for name, got, want, hx, hy in (
+                ("render_fast", camera.render_fast(atlases[0], gp, gq, crop),
+                 camera.render_fast(atlases[1], pos, quat, crop), fx, fy),
+                ("render", camera.render(gpu.colormap, gp, gq),
+                 camera.render(cm, pos, quat), hit[..., 0], hit[..., 1]),
+                ("render_rgb", camera.render_rgb(gpu.colormap, gp, gq),
+                 camera.render_rgb(cm, pos, quat), hit[..., 0],
+                 hit[..., 1])):
+            worst = max(worst, pixel_rule(
+                got, want, hx, hy, cm.cell, cm.width, cm.height,
+                f"{name} {label} B={b}"))
+    return worst
+
+
+def profiled(fn, calls=10):
+    """What `calls` calls of `fn` (a chain of launches) cost: (device ms
+    per call, the summed durations of the kernels and copies that
+    torch.profiler records on the card; their count per call; wall ms per
+    call of the same calls run unprofiled, each window closed by a
+    synchronize). The card's busy share of the wall time is their ratio."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = 1000.0 * (time.perf_counter() - t0) / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        raise AssertionError("torch.profiler recorded nothing on the card")
+    device_us = sum(e.time_range.elapsed_us() for e in on_card)
+    return device_us / 1000.0 / calls, len(on_card) / calls, wall_ms
+
+
+def visual_step_breakdown(device, card):
+    """Where a visual env step's time goes at RSS_VISUAL_CONFIG's shape
+    (512 envs, colored world): the whole generic step, its observation
+    (render + augmentation + obs noise) and its K2 launch, each by
+    `profiled`: device ms, launches and wall ms per call."""
+    import torch
+
+    from wheeledlab_torch.ops.physics_step import physics_step
+    from wheeledlab_torch.tasks import make_env
+
+    env = make_env("MushrVisualRL-v0", num_envs=VISUAL_ENVS,
+                   overrides={"color_sampling": True}, device=device, seed=3)
+    state, _ = env.reset()
+    for _ in range(5):                     # cars moving, some wheels spun
+        state, _ = env.step(state, torch.rand((VISUAL_ENVS, 2),
+                                              device=device) * 2 - 1)
+    action = torch.rand((VISUAL_ENVS, 2), device=device) * 2 - 1
+    ctx = env._make_ctx(state, state.vehicle)
+    x, k = visual_flat_inputs(VISUAL_ENVS, seed=5, device=device)
+    row = {"name": "visual env step, device ms", "envs": VISUAL_ENVS,
+           "card": card}
+    for key, fn in (("step", lambda: env.step(state, action)),
+                    ("observe", lambda: env.task.observe(ctx, env.generator)),
+                    ("k2", lambda: physics_step(**x, **k))):
+        (row[f"{key}_device_ms"], row[f"{key}_launches"],
+         row[f"{key}_wall_ms"]) = profiled(fn)
+    row["step_busy_share"] = row["step_device_ms"] / row["step_wall_ms"]
+    row["observe_share_of_step_device"] = (row["observe_device_ms"]
+                                           / row["step_device_ms"])
+    row["k2_share_of_step_device"] = (row["k2_device_ms"]
+                                      / row["step_device_ms"])
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def visual_play_phase(logs):
+    """The play CLI on the visual run: 50 steps at 16 envs with --video;
+    K2 carries every step, and the top-down video and env 0's policy-view
+    clip are written."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.cli import play
+
+    phase("visual play")
+    steps, envs = 50, 16
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = play.main(["--run", "visual", "--logs-dir", logs, "--steps",
+                         str(steps), "--num-envs", str(envs), "--video"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("visual play", read_launches(),
+                   {**NO_LAUNCHES, "K2": steps})
+    play_dir = os.path.join(logs, "visual", "play")
+    files = sorted(os.listdir(play_dir))
+    stems = {f.rsplit(".", 1)[0] for f in files}
+    if not {"visual", "visual-policyview"} <= stems:
+        raise AssertionError(f"play videos missing: {files}")
+    clip = [f for f in files if f.startswith("visual-policyview")][0]
+    if clip.endswith(".npy"):
+        frames = np.load(os.path.join(play_dir, clip))
+        if frames.shape != (steps, 240, 320, 3) or frames.max() == 0:
+            raise AssertionError(f"policy-view frames {frames.shape}")
+    npz = np.load(os.path.join(play_dir, "visual-rollouts.npz"))
+    if npz["observations"].shape != (steps, envs, 3208):
+        raise AssertionError(f"observations {npz['observations'].shape}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"play metrics {metrics}")
+    print(f"visual play: {steps} steps x {envs} envs in {wall:.2f} s; files "
+          f"{files}; {metrics}", flush=True)
     return steps
 
 
@@ -1160,7 +1501,7 @@ def rng_timing_phase(cases, kept, card, registers):
     return rows
 
 
-def timing_phase(cases, phys_cases, card, registers):
+def timing_phase(cases, phys_cases, vis_cases, card, registers):
     from wheeledlab_torch.ops.physics_step import (
         physics_step, physics_step_rows,
     )
@@ -1187,6 +1528,14 @@ def timing_phase(cases, phys_cases, card, registers):
             4 * (21 + 46 + 2 + 4 + 21) * b,
             k["decimation"] * FLAT_SUBSTEP_OPS * b, card,
             decimation=k["decimation"])
+    # K2 at the visual task's shape: 512 envs, decimation 20, dt 0.01
+    x, k = vis_cases[VISUAL_ENVS]
+    rows[("K2 visual", VISUAL_ENVS)] = timing_row(
+        "physics_step, visual", VISUAL_ENVS, lambda: physics_step(**x, **k),
+        lambda: physics_step_rows(**x, **k),
+        4 * (21 + 46 + 2 + 4 + 21) * VISUAL_ENVS,
+        k["decimation"] * FLAT_SUBSTEP_OPS * VISUAL_ENVS, card,
+        decimation=k["decimation"], dt=k["dt"])
     for b in (1024, 16384):
         x, k = phys_cases[("K3", b)]
         words = 21 + 46 + k["p"] ** 2 + 2 + 2 + 4 + 21
@@ -1225,13 +1574,19 @@ def main():
     max_err, cases = kernel_phase(device)
     phys_err, phys_cases = physics_phase(device)
     rng_err, kept = rng_kernel_phase(device, cases)
+    vis_err, vis_cases = visual_kernel_phase(device)
+    action_map_phase()
+    render_frac = render_phase(device)
     with tempfile.TemporaryDirectory() as logs:
         ((k1_launches, drift_ms), (k4_launches, krng_ms),
-         (k3_launches, elev_ms)) = train_phase(device, logs)
+         (k3_launches, elev_ms), (vis_launches, vis_ms)) = train_phase(
+            device, logs)
         k2_launches = play_phase(logs)
+        vis_play_launches = visual_play_phase(logs)
     k5b_launches, k5a_launches, mppi_launches, probe = script_phase()
-    timing = timing_phase(cases, phys_cases, card, registers)
+    timing = timing_phase(cases, phys_cases, vis_cases, card, registers)
     timing.update(rng_timing_phase(cases, kept, card, registers))
+    breakdown = visual_step_breakdown(device, card)
     # what drawing the rows in the kernel costs over reading them (K1), in
     # this run's graph times
     premium = {b: timing[("K4", b)]["graph_ms"] - timing[("K1", b)]["graph_ms"]
@@ -1242,6 +1597,7 @@ def main():
     standing = {b: standing_start_rows(cases, phys_cases, b, card)
                 for b in (1024, 16384)}
     k = lambda name: {b: r for (n, b), r in timing.items() if n == name}
+    visual_k2 = timing[("K2 visual", VISUAL_ENVS)]
     extra = lambda row, *keys: {key: row[key] for key in keys}
     kernels = [
         kernel_line("fused_drift_step", "wheeledlab_torch/csrc/fused_drift.cu",
@@ -1256,12 +1612,22 @@ def main():
                     registers_per_thread=registers_per_thread(
                         registers, "fused_drift")),
         kernel_line("physics_step", "wheeledlab_torch/csrc/physics_step.cu",
-                    K2_REPLACES, k2_launches, phys_err["K2"], k("K2"), 16,
-                    16384, registers.get("physics_step"),
+                    K2_REPLACES, k2_launches, max(phys_err["K2"], vis_err),
+                    k("K2"), 16, 16384, registers.get("physics_step"),
                     ms_1024=k("K2")[1024]["ms"],
                     graph_ms_1024=k("K2")[1024]["graph_ms"],
                     plain_ms_1024=k("K2")[1024]["plain_ms"],
-                    bound_ms_1024=k("K2")[1024]["bound_ms"]),
+                    bound_ms_1024=k("K2")[1024]["bound_ms"],
+                    visual_train_launches=vis_launches,
+                    visual_train_iteration_ms=vis_ms,
+                    visual_play_launches=vis_play_launches,
+                    **{f"{key}_{VISUAL_ENVS}": visual_k2[key] for key in (
+                        "ms", "graph_ms", "plain_ms", "bound_ms")},
+                    decimation_512=visual_k2["decimation"],
+                    **{f"visual_{key}": breakdown[key] for key in (
+                        "step_device_ms", "step_wall_ms", "step_launches",
+                        "observe_device_ms", "step_busy_share")},
+                    visual_render_pixels_differ=render_frac),
         kernel_line("physics_step_hf",
                     "wheeledlab_torch/csrc/physics_step_hf.cu", K3_REPLACES,
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,

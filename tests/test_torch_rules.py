@@ -76,12 +76,13 @@ def test_default_device_is_cuda_without_fallback():
     from wheeledlab_torch.tasks import make_env
     from wheeledlab_torch.utils.config import RUN_CONFIGS, override
 
-    for task in ("MushrDriftRL-v0", "MushrElevationRL-v0"):
+    for task in ("MushrDriftRL-v0", "MushrElevationRL-v0",
+                 "MushrVisualRL-v0"):
         with pytest.raises(RuntimeError, match="CUDA"):
             make_env(task, num_envs=8)
         with pytest.raises(RuntimeError, match="CUDA"):
             make_env(task, num_envs=8, play=True)
-    for name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG"):
+    for name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG", "RSS_VISUAL_CONFIG"):
         cfg = override(RUN_CONFIGS.get(name), "num_envs", 8)
         assert cfg.device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -8,8 +8,9 @@ task's play variant, dump the rollouts and the task-success metrics.
 Writes <run>/play/<run>-rollouts.npz (observations, actions, positions,
 yaws, rewards, commands, stacked over steps) and <run>/play/
 play_metrics.json, with the reference's keys; with `--video` also a top-down
-video <run>/play/<run>.avi (or .mp4 / .npy, by the encoder installed). Runs
-on CUDA unless `--device cpu` is given.
+video <run>/play/<run>.avi (or .mp4 / .npy, by the encoder installed) and,
+for camera tasks, env 0's policy-view clip <run>/play/<run>-policyview.avi.
+Runs on CUDA unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=500)
     p.add_argument("--num-envs", type=int, default=16)
     p.add_argument("--video", action="store_true",
-                   help="render a top-down video of the rollouts")
+                   help="render a top-down video of the rollouts and, "
+                        "for camera tasks, the policy-view clip")
     p.add_argument("--headless", action="store_true", help="compat no-op")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
@@ -99,7 +101,7 @@ def main(argv=None):
 
     state, obs = env.reset()
     traj = {k: [] for k in ("observations", "actions", "positions", "yaws",
-                            "rewards", "commands", "done")}
+                            "rewards", "commands", "done", "quats")}
     with torch.no_grad():
         for _ in range(args.steps):
             mean, _, _ = model(obs)            # deterministic policy
@@ -109,7 +111,7 @@ def main(argv=None):
                          ("positions", v.pos),
                          ("yaws", wmath.yaw_from_quat(v.quat)),
                          ("rewards", out.reward), ("commands", state.command),
-                         ("done", out.done)):
+                         ("done", out.done), ("quats", v.quat)):
                 traj[k].append(x)
             obs = out.obs
     # one device->host copy per channel, after the rollout
@@ -119,7 +121,7 @@ def main(argv=None):
     os.makedirs(play_dir, exist_ok=True)
     out_path = os.path.join(play_dir, f"{args.run}-rollouts.npz")
     np.savez_compressed(out_path, **{k: v for k, v in traj.items()
-                                     if k != "done"})
+                                     if k not in ("done", "quats")})
     print(f"saved rollouts to {out_path}  (obs "
           f"{traj['observations'].shape}, mean reward "
           f"{traj['rewards'].mean():.3f})")
@@ -138,6 +140,14 @@ def main(argv=None):
             traj["yaws"], goals=traj["commands"][:, :, :2])
         vid = save_video(frames, os.path.join(play_dir, f"{args.run}.avi"))
         print(f"saved video to {vid}")
+        if env.task.colormap is not None:
+            from ..rl.runner import policy_view_video
+
+            vid = policy_view_video(
+                env, torch.from_numpy(traj["positions"][:, 0]).to(device),
+                torch.from_numpy(traj["quats"][:, 0]).to(device),
+                os.path.join(play_dir, f"{args.run}-policyview.avi"))
+            print(f"saved policy-view video to {vid}")
     return metrics
 
 

@@ -31,7 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--headless", action="store_true",
                    help="accepted for reference-CLI compatibility (no-op)")
     p.add_argument("--video", action="store_true",
-                   help="record training videos (not ported yet: raises)")
+                   help="record top-down training videos every "
+                        "train.log.video_interval iterations (reference "
+                        "LogConfig.video, common_cfg.py:19-29)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process training (not ported yet: raises)")
     p.add_argument("--device", default=None,

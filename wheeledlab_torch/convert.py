@@ -56,7 +56,8 @@ def env_state_from_jax(state_np, ground_friction: float = 1.0,
     `VehicleState` or packed (21, B) rows) -> the port's EnvState. The JAX
     PRNG key has no counterpart: the port's env draws from its generator.
     `ground_friction` is folded into the packed params when the JAX state
-    carries none (its generic path)."""
+    carries none (its generic path): the task's ground friction, 1.0 for
+    drift and elevation, 2.0 for the visual task."""
     vm = _get(state_np, "vehicle_mem")
     if isinstance(vm, np.ndarray):
         vehicle_mem = _t(vm, device=device)

@@ -7,7 +7,9 @@
 // oracle it is tested against, is
 // `wheeledlab_torch/ops/physics_step.py::physics_step_rows` (the
 // `sim/soa.py::substep_soa` loop). The generic manager step runs it for flat
-// tasks without a fused step: the drift play variants at decimation 4.
+// tasks without a fused step: the drift play variants at decimation 4 and the
+// visual task at decimation 20. It is built without FMA contraction
+// (`ops/build.py::SOURCE_FLAGS`) and matches its plain version bit for bit.
 //
 // Bound: per env it reads state 21, params 46, steer targets 2 and wheel
 // targets 4 words and writes state 21: 94 words, 376 bytes. Its arithmetic is

@@ -139,6 +139,9 @@ class TaskModel(NamedTuple):
     render_grid: Optional[Tuple[np.ndarray, float]] = None
     # ^ (grid (rows, cols), cell) background of the top-down renderer; None
     # -> the drift oval
+    colormap: Optional[object] = None
+    # ^ the visual task's world ColorMap (tasks/visual/camera.py), for the
+    # policy-view clips of training and playback
 
 
 @dataclasses.dataclass

@@ -32,8 +32,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # left the tolerance after 4 chained steps (a wheel rate near zero; no switch
 # flipped), and so does a chain of 4 launches of the fused step, which keeps
 # contraction. Without it the rollout matches its plain version bit for bit.
+#
+# K2 (the flat step) likewise, so that the visual task's 20 substeps a
+# control step leave the card exactly where the plain version does.
 SOURCE_FLAGS = {"physics_step_hf": ["--fmad=false"],
-                "multi_step": ["--fmad=false"]}
+                "multi_step": ["--fmad=false"],
+                "physics_step": ["--fmad=false"]}
 SOURCES = ("fused_drift", "physics_step", "physics_step_hf",
            "fused_drift_krng", "multi_step", "rng_blocks")
 

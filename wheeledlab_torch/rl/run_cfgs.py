@@ -1,8 +1,7 @@
 """Named run configs — the port of `wheeledlab_tpu/rl/run_cfgs.py` for the
-drift and elevation tasks (reference configs/runs/rss_cfgs.py:8-53,
-runs/f1tenth_cfgs.py:7-21). RSS_VISUAL_CONFIG, RSS_DRIFT_RNN_CONFIG and
-POD_DRIFT_CONFIG are registered when their task, learner and multi-process
-training are ported."""
+drift, elevation and visual tasks (reference configs/runs/rss_cfgs.py:8-53,
+runs/f1tenth_cfgs.py:7-21). RSS_DRIFT_RNN_CONFIG and POD_DRIFT_CONFIG are
+registered when their learner and multi-process training are ported."""
 
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from .runner import LogCfg, RunConfig, TrainCfg
 DRIFT_PPO = PPOCfg(activation="elu")
 # `fuse_input_layer` is a TPU matmul-tiling knob and a no-op in the port
 ELEV_PPO = PPOCfg(activation="relu", fuse_input_layer=True)
+VISUAL_PPO = PPOCfg(activation="relu", fuse_input_layer=True)
 
 RSS_DRIFT_CONFIG = RunConfig(
     task_name="MushrDriftRL-v0",
@@ -26,6 +26,16 @@ RSS_ELEV_CONFIG = RunConfig(
     num_envs=1024,
     train=TrainCfg(num_iterations=4000, log=LogCfg()),
     agent=ELEV_PPO,
+)
+
+RSS_VISUAL_CONFIG = RunConfig(
+    task_name="MushrVisualRL-v0",
+    num_envs=512,
+    train=TrainCfg(num_iterations=4000, log=LogCfg()),
+    agent=VISUAL_PPO,
+    # world-side color DR on for the named run; the task's default stays
+    # off, as the reference's registered cfg (mushr_visual_env_cfg.py:110)
+    env_overrides={"color_sampling": True},
 )
 
 # Goal-seeking elevation variant (beyond the reference's registered
@@ -46,6 +56,6 @@ F1TENTH_DRIFT_CONFIG = RunConfig(
     agent=DRIFT_PPO,
 )
 
-for _name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG", "ELEV_GOAL_CONFIG",
-              "F1TENTH_DRIFT_CONFIG"):
+for _name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG", "RSS_VISUAL_CONFIG",
+              "ELEV_GOAL_CONFIG", "F1TENTH_DRIFT_CONFIG"):
     RUN_CONFIGS.register(_name, globals()[_name])

@@ -209,21 +209,47 @@ def train(run_cfg: RunConfig, env=None, max_iterations: Optional[int] = None,
 def _write_video(run_cfg, env, run_dir, iteration, metrics):
     """Render the rollout's first envs top-down into
     `<run_dir>/videos/iter_<iteration>.*` and drop the `traj/*` channels
-    from `metrics` (the policy-view clip of camera tasks waits for the
-    visual task)."""
+    from `metrics`. Camera tasks also get env 0's policy-view clip,
+    `iter_<iteration>-policyview.*` (reference runner.py:368-385). Returns
+    the paths written."""
     from ..render.topdown import render_task_frames, save_video
 
     log_cfg = run_cfg.train.log
     length = log_cfg.video_length or None          # 0 -> the full rollout
-    pos = metrics.pop("traj/pos").cpu().numpy()[:length, :, :2]
+    pos = metrics.pop("traj/pos")[:length]
+    quat = metrics.pop("traj/quat")[:length]
     yaw = metrics.pop("traj/yaw").cpu().numpy()[:length]
     cmd = metrics.pop("traj/cmd").cpu().numpy()[:length]
     vid_dir = os.path.join(run_dir, "videos")
     os.makedirs(vid_dir, exist_ok=True)
-    frames = render_task_frames(env, run_cfg.task_name, pos, yaw, cmd)
-    return save_video(frames, os.path.join(vid_dir, f"iter_{iteration}.avi"),
-                      resolution=log_cfg.video_resolution or None,
-                      crf=log_cfg.video_crf)
+    frames = render_task_frames(env, run_cfg.task_name,
+                                pos.cpu().numpy()[:, :, :2], yaw, cmd)
+    paths = [save_video(frames,
+                        os.path.join(vid_dir, f"iter_{iteration}.avi"),
+                        resolution=log_cfg.video_resolution or None,
+                        crf=log_cfg.video_crf)]
+    if env.task.colormap is not None:
+        paths.append(policy_view_video(
+            env, pos[:, 0], quat[:, 0],
+            os.path.join(vid_dir, f"iter_{iteration}-policyview.avi"),
+            crf=log_cfg.video_crf))
+    return paths
+
+
+def policy_view_video(env, pos, quat, path, crf: int = 30) -> str:
+    """The clip of what one env's camera sees over (T, 3) positions and
+    (T, 4) orientations: the exact RGB render at 320 x 240, one frame a
+    control step (reference CustomRecordVideo over the TiledCamera,
+    custom_video_recorder.py:12-75). Returns the path written."""
+    from ..render.topdown import save_video
+    from ..tasks.visual.camera import render_rgb
+
+    with torch.no_grad():
+        rgb = render_rgb(env.task.colormap, pos, quat)
+    frames = torch.clamp(rgb * 255.0, 0, 255).to(torch.uint8).cpu().numpy()
+    return save_video(frames, path,
+                      fps=max(int(round(1.0 / env.cfg.step_dt)), 1),
+                      resolution=(320, 240), crf=crf)
 
 
 def _train_loop(run_cfg, env, learner, state, logger, save_ckpts, n_iter,

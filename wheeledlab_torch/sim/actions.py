@@ -4,7 +4,8 @@ port of `wheeledlab_tpu/sim/actions.py` (reference ackermann_actions.py:
 
 Wheel-target order: [back_left, back_right, front_left, front_right];
 steer order [left, right]. Undriven wheels get target 0 and are masked by
-`drive_mask` downstream.
+`drive_mask` downstream. A tensor is divided by a constant through
+`utils/math.py::div`, so that CUDA divides as the CPU and JAX do.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils.config import configclass
+from ..utils.math import div
 
 
 @configclass
@@ -80,7 +82,7 @@ def rwd_map(processed: torch.Tensor, cfg: ActionMapCfg):
     (rc_car_actions.py:12-29)."""
     v, steer = processed[..., 0], processed[..., 1]
     tan_steering = torch.tan(steer)
-    target_ang_vel = v / cfg.wheel_radius
+    target_ang_vel = div(v, cfg.wheel_radius)
     steer_targets = torch.stack([tan_steering, tan_steering], dim=-1)
     zeros = torch.zeros_like(target_ang_vel)
     wheel_targets = torch.stack(

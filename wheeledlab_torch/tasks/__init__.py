@@ -1,5 +1,5 @@
-"""Task registry — the port of `wheeledlab_tpu/tasks/__init__.py` for the
-drift and elevation tasks. Task ids keep the reference names minus the
+"""Task registry — the port of `wheeledlab_tpu/tasks/__init__.py`: the
+drift, elevation and visual tasks. Task ids keep the reference names minus the
 "Isaac-" vendor prefix; the old ids are accepted as aliases."""
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ from typing import Any, Dict, Optional
 from ..utils.config import TASKS, apply_overrides
 from .drift.task import DriftTaskCfg, make_drift_env
 from .elevation.task import ElevationTaskCfg, make_elevation_env
+from .visual.task import VisualTaskCfg, make_visual_env
 
 
 def _register_all():
@@ -39,6 +40,14 @@ def _register_all():
         "play_cfg": ElevationTaskCfg(terminations_enabled=False,
                                      rewards_enabled=False),
         "make": make_elevation_env,
+    })
+    # the camera policy; its play variant strips terminations and rewards
+    # (mushr_visual_env_cfg.py:455-470)
+    TASKS.register("MushrVisualRL-v0", {
+        "cfg": VisualTaskCfg(),
+        "play_cfg": VisualTaskCfg(terminations_enabled=False,
+                                  rewards_enabled=False),
+        "make": make_visual_env,
     })
 
 
