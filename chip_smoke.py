@@ -56,12 +56,28 @@ printing its final line:
              launches); and on RSS_VISUAL_CONFIG (512 envs, obs 3208, colored
              world), where K2 must (384 launches); no other kernel may
              launch.
+   recurrent — ActorCriticRecurrent (LSTM-256, obs 14) at 1024 envs, one
+             32-step sequence with resets on the card and on the CPU: means,
+             values and hidden state within RNN_FORWARD_TOL (both compute
+             the cells in bfloat16, summed in other orders); then 3
+             iterations of RSS_DRIFT_RNN_CONFIG (1024 envs, 128 steps, 5
+             epochs x 4 env-axis minibatches of BPTT), where K1 must carry
+             every env step (384 launches), with finite losses and the LSTM
+             weights moved; one iteration's rollout and update timed apart
+             and one minibatch update's device time and launches
+             (torch.profiler); RSS_ELEV_CONFIG with
+             agent.compute_dtype=bfloat16 beside float32, 3 iterations a
+             run in turns (float32, bfloat16, bfloat16, float32; 384 K3
+             launches each, obs stored in the run's dtype).
 5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
              its play variant for 200 steps at 16 envs through the generic
              step, where K2 must carry every step (200 launches); and on the
              visual run, 50 steps at 16 envs with `--video` (50 K2 launches),
              which must write the top-down video and env 0's policy-view
-             clip.
+             clip; on the recurrent run, 50 steps at 16 envs (50 K2
+             launches, the carry reset by done), and `cli.export --format
+             both`, which must write the npz alone with the flax parameter
+             names and layouts.
 6. scripts — `scripts.check_kernel_rng` (K5b; must pass),
              `scripts.limiter_probe` at 16384 envs, K = 1, 2, 4, 8, with a
              0.5 s window (K5a carries every call) and `scripts.mppi_demo`
@@ -769,10 +785,11 @@ def check_launches(path, got, want):
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
 
-def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024):
-    """3 full-width training iterations of `config` (`envs` envs); `kernel`
-    must carry every env step and no other kernel may launch. Returns
-    (launches, iteration ms)."""
+def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
+              overrides=()):
+    """3 full-width training iterations of `config` (`envs` envs, with the
+    (key, value) `overrides`); `kernel` must carry every env step and no
+    other kernel may launch. Returns (launches, iteration ms)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
@@ -786,7 +803,7 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024):
                  ("train.log.run_name", run_name),
                  ("train.log.log_every", 1),
                  ("train.log.checkpoint_every", 1000),
-                 ("device", device)):
+                 ("device", device), *overrides):
         cfg = override(cfg, k, v)
     assert (cfg.num_envs, cfg.agent.num_steps_per_env,
             cfg.agent.num_learning_epochs,
@@ -864,6 +881,230 @@ def play_phase(logs):
         raise AssertionError(f"play metrics {saved}")
     print(f"play: {steps} steps x {envs} envs in {wall:.2f} s; {saved}",
           flush=True)
+    return steps
+
+
+# The recurrent forward on the card against the CPU: both compute the
+# cells in bfloat16, and cuBLAS sums a product in another order than the
+# CPU, so a bfloat16 gate input rounds the other way now and then (about 1
+# in 10^4 elements of a product, CPU against XLA); each such flip moves a
+# carry by up to a bfloat16 ulp of a gate and runs on through the float32
+# carry. The bound is 16 bfloat16 ulps of an O(1) output (2^-8 each) after
+# 32 steps; for scale, the JAX reference compiled and run op by op differs
+# by 5.6e-3 after 6 steps (tests/test_torch_recurrent.py).
+RNN_FORWARD_TOL = 16 * 2.0 ** -8
+RNN_STEPS = 32
+
+
+def recurrent_forward_phase(device):
+    """ActorCriticRecurrent at RSS_DRIFT_RNN_CONFIG's width (LSTM-256, one
+    layer, obs 14, 1024 envs), weights from a seed with nonzero biases:
+    one 32-step sequence with resets (about 10 % a step) from a random
+    hidden state, on the card and on the CPU. Returns the largest |d| of
+    means, values and hidden state."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.rl.recurrent import ActorCriticRecurrent
+
+    phase("recurrent forward (CUDA against the CPU)")
+    envs = 1024
+    model = ActorCriticRecurrent(14, 2, rnn_hidden_size=256,
+                                 generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.from_numpy(
+                rng.normal(0, 0.1, tuple(p.shape)).astype(np.float32)))
+    obs = torch.from_numpy(rng.standard_normal(
+        (RNN_STEPS, envs, 14)).astype(np.float32))
+    reset = torch.from_numpy(
+        (rng.random((RNN_STEPS, envs)) < 0.1).astype(np.float32))
+    h0 = {chain: [tuple(torch.from_numpy(0.5 * rng.standard_normal(
+        (envs, 256)).astype(np.float32)) for _ in range(2))]
+        for chain in ("actor", "critic")}
+    with torch.no_grad():
+        want = model(h0, obs, reset)
+        on_card = {chain: [tuple(x.to(device) for x in pair)
+                           for pair in layers] for chain, layers in h0.items()}
+        got = model.to(device)(on_card, obs.to(device), reset.to(device))
+        torch.cuda.synchronize()
+    leaves = lambda h: [x for layers in h.values() for pair in layers
+                        for x in pair]
+    diff = lambda a, b: float((a.cpu() - b).abs().max())
+    d = {"mean": diff(got[1], want[1]), "value": diff(got[3], want[3]),
+         "hidden": max(diff(a, b) for a, b in zip(leaves(got[0]),
+                                                   leaves(want[0])))}
+    mean_abs = float((got[1].cpu() - want[1]).abs().mean())
+    print(json.dumps({"name": "recurrent forward, card against CPU",
+                      "steps": RNN_STEPS, "envs": envs, "max_abs_d": d,
+                      "mean_abs_d_mean": mean_abs, "tol": RNN_FORWARD_TOL,
+                      "bf16_reduced_precision_reduction":
+                          torch.backends.cuda.matmul.
+                          allow_bf16_reduced_precision_reduction}),
+          flush=True)
+    if not all(math.isfinite(v) and v <= RNN_FORWARD_TOL
+               for v in d.values()):
+        raise AssertionError(f"recurrent forward: card against CPU {d}")
+    return max(d.values())
+
+
+def recurrent_train_phase(device, logs):
+    """3 RSS_DRIFT_RNN_CONFIG iterations at 1024 envs (384 K1 launches,
+    finite losses, the LSTM weights moved); then one iteration's rollout
+    and update timed apart (wall clock, synchronized) and one minibatch
+    update's device time (torch.profiler). Returns (launches, iteration ms,
+    split)."""
+    import torch
+
+    import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.rl.ppo import make_learner
+    from wheeledlab_torch.tasks import make_env
+    from wheeledlab_torch.utils.config import RUN_CONFIGS
+
+    phase("recurrent train")
+    launches, iter_ms = train_run(device, logs, "RSS_DRIFT_RNN_CONFIG", "rnn",
+                                  14, "K1")
+    cfg = RUN_CONFIGS.get("RSS_DRIFT_RNN_CONFIG")
+    ck = torch.load(os.path.join(logs, "rnn", "checkpoints", "3.pt"),
+                    map_location="cpu", weights_only=True)
+    trained = ck["learner"]["model"]
+    env = make_env(cfg.task_name, num_envs=cfg.num_envs, device=device)
+    learner = make_learner(env, cfg.agent, seed=cfg.train.seed)
+    initial = learner.model.state_dict()
+    moved = {k: float((trained[k] - initial[k].cpu()).abs().max())
+             for k in initial if k.startswith(("lstm_a", "lstm_c"))}
+    if sorted(moved) != sorted(f"{c}.0.{w}" for c in ("lstm_a", "lstm_c")
+                               for w in ("wi", "wh", "bh")) \
+            or min(moved.values()) == 0.0:
+        raise AssertionError(f"LSTM weights did not move: {moved}")
+    print(f"LSTM weights moved by (max |d|) {moved}", flush=True)
+
+    # rollout against update, one iteration
+    state = learner.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env_state, obs, hidden, reset_prev, h0, traj, _ = learner.rollout(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        _, _, _, last_value = learner.model.step(hidden, obs, reset_prev)
+        _, returns, norm_adv = learner.compute_gae(
+            traj["reward"], traj["value"], traj["done"], last_value)
+    dataset = (traj["obs"], traj["reset"], traj["action"], traj["log_prob"],
+               traj["value"], returns, norm_adv, traj["mean"], traj["std"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    learner.update_epochs(h0, dataset)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    mb = cfg.num_envs // cfg.agent.num_mini_batches
+    cols = torch.arange(mb, device=device)
+    batch = ({c: [(a[cols], b[cols]) for a, b in layers]
+              for c, layers in h0.items()},
+             *(x[:, cols] for x in dataset))
+    dev_ms, n_launch, wall_ms = profiled(
+        lambda: learner.minibatch_update(batch), calls=2)
+    split = {"rollout_ms": 1000.0 * (t1 - t0), "gae_ms": 1000.0 * (t2 - t1),
+             "update_ms": 1000.0 * (t3 - t2),
+             "minibatch_update_device_ms": dev_ms,
+             "minibatch_update_launches": n_launch,
+             "minibatch_update_wall_ms": wall_ms,
+             "minibatch_update_busy_share": dev_ms / wall_ms}
+    print(json.dumps({"name": "RSS_DRIFT_RNN_CONFIG iteration split",
+                      **split}), flush=True)
+    return launches, iter_ms, split
+
+
+def bf16_train_phase(device, logs):
+    """RSS_ELEV_CONFIG with agent.compute_dtype=bfloat16 beside float32, in
+    turns (float32, bfloat16, bfloat16, float32; 3 iterations each): 384
+    K3 launches a run, finite losses, and every bfloat16 update fed obs
+    stored in bfloat16, every float32 one float32 obs. Returns the
+    iteration ms of each run, {dtype: [run, run]}."""
+    import torch
+
+    from wheeledlab_torch.rl import ppo
+
+    phase("bf16 train")
+    stored, update = [], ppo.PPO.update_epochs
+
+    def spy(self, dataset):
+        stored.append(dataset[0].dtype)
+        return update(self, dataset)
+
+    ms = {"float32": [], "bfloat16": []}
+    ppo.PPO.update_epochs = spy
+    try:
+        for i, dtype in enumerate(("float32", "bfloat16", "bfloat16",
+                                   "float32")):
+            stored.clear()
+            _, iter_ms = train_run(
+                device, logs, "RSS_ELEV_CONFIG", f"elev_{dtype}_{i}", 689,
+                "K3", overrides=(("agent.compute_dtype", dtype),))
+            if stored != [getattr(torch, dtype)] * 3:
+                raise AssertionError(f"{dtype} run stored obs as {stored}")
+            ms[dtype].append(iter_ms)
+    finally:
+        ppo.PPO.update_epochs = update
+    return ms
+
+
+def recurrent_play_phase(logs):
+    """The play CLI on the recurrent run: 50 steps at 16 envs through K2,
+    with the JAX play's keys; then the export CLI with --format both, which
+    writes the npz alone, holding the flax parameter names and layouts.
+    Returns the K2 launches."""
+    import numpy as np
+    import torch
+
+    from wheeledlab_torch.cli import export, play
+
+    phase("recurrent play and export")
+    steps, envs = 50, 16
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = play.main(["--run", "rnn", "--logs-dir", logs, "--steps",
+                         str(steps), "--num-envs", str(envs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("recurrent play", read_launches(),
+                   {**NO_LAUNCHES, "K2": steps})
+    npz = np.load(os.path.join(logs, "rnn", "play", "rnn-rollouts.npz"))
+    if set(npz.files) != {"observations", "actions", "positions", "yaws",
+                          "rewards", "commands"}:
+        raise AssertionError(f"rollout keys {sorted(npz.files)}")
+    if npz["actions"].shape != (steps, envs, 2) \
+            or not np.isfinite(npz["actions"]).all():
+        raise AssertionError("recurrent play actions malformed")
+    if not {"reward_mean", "speed_mean"} <= set(metrics) \
+            or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"play metrics {metrics}")
+    print(f"recurrent play: {steps} steps x {envs} envs in {wall:.2f} s; "
+          f"{metrics}", flush=True)
+
+    written = export.main(["--run", "rnn", "--logs-dir", logs, "--format",
+                           "both"])
+    if [os.path.basename(w) for w in written] != ["rnn-policy.npz"]:
+        raise AssertionError(f"recurrent export wrote {written}")
+    flat = np.load(written[0])
+    want = {"__meta__": None, "log_std": (2,)}
+    for chain in "ac":
+        for g in "ifgo":
+            cell = f"memory.lstm_{chain}0"
+            want[f"{cell}.i{g}.kernel"] = (14, 256)
+            want[f"{cell}.h{g}.kernel"] = (256, 256)
+            want[f"{cell}.h{g}.bias"] = (256,)
+    for head, out in (("actor", 2), ("critic", 1)):
+        for i, (n_in, n_out) in enumerate(((256, 64), (64, 64), (64, out))):
+            want[f"{head}.Dense_{i}.kernel"] = (n_in, n_out)
+            want[f"{head}.Dense_{i}.bias"] = (n_out,)
+    if set(flat.files) != set(want) or any(
+            shape is not None and flat[k].shape != shape
+            for k, shape in want.items()):
+        raise AssertionError(f"recurrent npz {sorted(flat.files)}")
+    print(f"recurrent export: {len(flat.files)} arrays, flax names and "
+          "layouts", flush=True)
     return steps
 
 
@@ -1577,12 +1818,18 @@ def main():
     vis_err, vis_cases = visual_kernel_phase(device)
     action_map_phase()
     render_frac = render_phase(device)
+    rnn_forward_d = recurrent_forward_phase(device)
     with tempfile.TemporaryDirectory() as logs:
         ((k1_launches, drift_ms), (k4_launches, krng_ms),
          (k3_launches, elev_ms), (vis_launches, vis_ms)) = train_phase(
             device, logs)
+        rnn_launches, rnn_ms, rnn_split = recurrent_train_phase(device, logs)
+        bf16_ms = bf16_train_phase(device, logs)
+        print(json.dumps({"name": "RSS_ELEV_CONFIG iteration ms, in turns",
+                          **bf16_ms, "card": card}), flush=True)
         k2_launches = play_phase(logs)
         vis_play_launches = visual_play_phase(logs)
+        rnn_play_launches = recurrent_play_phase(logs)
     k5b_launches, k5a_launches, mppi_launches, probe = script_phase()
     timing = timing_phase(cases, phys_cases, vis_cases, card, registers)
     timing.update(rng_timing_phase(cases, kept, card, registers))
@@ -1605,6 +1852,10 @@ def main():
                     max_err, k("K1"), 1024, 16384,
                     registers.get("fused_drift"),
                     train_iteration_ms=drift_ms,
+                    rnn_train_launches=rnn_launches,
+                    rnn_train_iteration_ms=rnn_ms,
+                    **{f"rnn_{k}": v for k, v in rnn_split.items()},
+                    rnn_forward_card_vs_cpu_max_abs_d=rnn_forward_d,
                     mppi_demo_launches=mppi_launches,
                     standing_start_graph_ms=standing[1024]["K1"]["graph_ms"],
                     standing_start_graph_ms_16384=standing[16384]["K1"][
@@ -1621,6 +1872,7 @@ def main():
                     visual_train_launches=vis_launches,
                     visual_train_iteration_ms=vis_ms,
                     visual_play_launches=vis_play_launches,
+                    rnn_play_launches=rnn_play_launches,
                     **{f"{key}_{VISUAL_ENVS}": visual_k2[key] for key in (
                         "ms", "graph_ms", "plain_ms", "bound_ms")},
                     decimation_512=visual_k2["decimation"],
@@ -1633,6 +1885,8 @@ def main():
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
                     registers.get("physics_step_hf"),
                     train_iteration_ms=elev_ms,
+                    bf16_train_iteration_ms=bf16_ms["bfloat16"],
+                    f32_turns_train_iteration_ms=bf16_ms["float32"],
                     standing_start_graph_ms=standing[1024]["K3"]["graph_ms"],
                     standing_start_graph_ms_16384=standing[16384]["K3"][
                         "graph_ms"],

@@ -147,12 +147,13 @@ class TestExport:
             "exp-policy.npz"]
         assert [os.path.basename(w) for w in
                 export.main(common + ["--format", "pt"])] == ["model_1.pt"]
-        cfg_path = tmp_path / "exp" / "run_config.json"
-        saved = json.load(open(cfg_path))
-        saved["run"]["agent"]["policy_class"] = "ActorCriticRecurrent"
-        json.dump(saved, open(cfg_path, "w"))
-        with pytest.raises(NotImplementedError, match="Recurrent"):
-            export.main(common)
+        # a recurrent run has no rsl_rl layout: the default `both` writes
+        # the npz alone, as the JAX export does
+        tiny_run(tmp_path, "RSS_DRIFT_RNN_CONFIG", "rnn",
+                 **{"agent.rnn_hidden_size": 8})
+        assert [os.path.basename(w) for w in export.main([
+            "--run", "rnn", "--logs-dir", str(tmp_path), "--device", "cpu",
+            "--out", str(tmp_path / "o")])] == ["rnn-policy.npz"]
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 export.main(["--run", "exp", "--logs-dir", str(tmp_path)])

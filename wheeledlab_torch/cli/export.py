@@ -14,6 +14,11 @@ activation, action scale/offset) for deployment targets without torch.
     python -m wheeledlab_torch.cli.export --run <run_name> [--checkpoint N]
         [--format pt|npz|both] [--out DIR] [--device cuda]
 
+A recurrent run (`ActorCriticRecurrent`) has no rsl_rl deployment layout:
+its npz holds the flax parameter tree flattened with "." (flax names and
+layouts, kernels (in, out)), and `--format pt` or `both` writes the npz
+alone, with a note on stderr, as the JAX export does.
+
 `--device` is where the run's env is built (only its dimensions and action
 map are read): CUDA unless `cpu` is asked for.
 """
@@ -45,6 +50,35 @@ def flatten_actor_critic(state_dict, meta):
         meta[f"{head}_layers"] = sum(k.endswith(".weight") for k in keys)
     log_std = state_dict["log_std"].detach().cpu().numpy()
     out["std"] = np.exp(np.clip(log_std, -5.0, 2.0))
+    return out
+
+
+def flatten_recurrent(state_dict):
+    """The port's `ActorCriticRecurrent.state_dict()` -> the flax parameter
+    tree flattened with "." (`flatten_dict(params["params"])` of the JAX
+    model): `memory.lstm_{a,c}{i}.{ii..io}.kernel` (in, H) and
+    `{hi..ho}.kernel` (H, H) with `.bias`, split out of each cell's
+    concatenated `wi`, `wh`, `bh` in gate order; `{actor,critic}.Dense_{j}
+    .kernel` (in, out) and `.bias`; `log_std`."""
+    from ..convert import GATES
+
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    out = {"log_std": sd["log_std"]}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if parts[0] in ("lstm_a", "lstm_c"):
+            cell = f"memory.{parts[0]}{parts[1]}"
+            side, leaf = {"wi": ("i", "kernel"), "wh": ("h", "kernel"),
+                          "bh": ("h", "bias")}[parts[2]]
+            for g, block in zip(GATES, np.split(v, 4, axis=-1)):
+                out[f"{cell}.{side}{g}.{leaf}"] = block
+        elif parts[0] in ("actor", "critic"):
+            # nn.Sequential index 0, 2, 4, ... -> Dense_0, Dense_1, ...
+            dense = f"{parts[0]}.Dense_{int(parts[1]) // 2}"
+            if parts[2] == "weight":
+                out[f"{dense}.kernel"] = v.T
+            else:
+                out[f"{dense}.bias"] = v
     return out
 
 
@@ -92,9 +126,13 @@ def main(argv=None):
         saved = json.load(f)["run"]
     agent_cfg = PPOCfg(**{k: (tuple(v) if isinstance(v, list) else v)
                           for k, v in saved["agent"].items()})
-    if agent_cfg.policy_class != "ActorCritic":
-        raise NotImplementedError(
-            f"{agent_cfg.policy_class} export is not ported yet")
+    recurrent = agent_cfg.policy_class == "ActorCriticRecurrent"
+    if recurrent and args.format != "npz":
+        # rsl_rl's recurrent module has no registered deployment path; the
+        # npz carries the full parameter tree
+        print("recurrent policy: .pt export targets rsl_rl ActorCritic "
+              "only; writing npz", file=sys.stderr)
+        args.format = "npz"
 
     env = make_env(saved["task_name"], num_envs=saved["num_envs"],
                    overrides=saved.get("env_overrides") or None,
@@ -120,7 +158,9 @@ def main(argv=None):
         "action_offset": list(np.asarray(env.cfg.action.offset).ravel()),
         "policy_class": agent_cfg.policy_class,
     }
-    flat = flatten_actor_critic(ck["learner"]["model"], meta)
+    model = ck["learner"]["model"]
+    flat = (flatten_recurrent(model) if recurrent
+            else flatten_actor_critic(model, meta))
 
     written = []
     if args.format in ("pt", "both"):

@@ -69,8 +69,7 @@ def main(argv=None):
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     import torch
 
-    from ..rl.networks import ActorCritic
-    from ..rl.ppo import PPOCfg
+    from ..rl.ppo import PPOCfg, make_learner
     from ..rl.runner import checkpoint_steps
     from ..tasks import make_env
     from ..utils import math as wmath
@@ -82,9 +81,7 @@ def main(argv=None):
         saved = json.load(f)["run"]
     agent_cfg = PPOCfg(**{k: (tuple(v) if isinstance(v, list) else v)
                           for k, v in saved["agent"].items()})
-    if agent_cfg.policy_class != "ActorCritic":
-        raise NotImplementedError(
-            f"{agent_cfg.policy_class} playback is not ported yet")
+    recurrent = agent_cfg.policy_class == "ActorCriticRecurrent"
 
     # the play variant; the run's env overrides are applied again so that
     # playback matches training
@@ -94,17 +91,24 @@ def main(argv=None):
     step = args.checkpoint or checkpoint_steps(run_dir)[-1]
     ck = torch.load(os.path.join(run_dir, "checkpoints", f"{step}.pt"),
                     map_location=device, weights_only=True)
-    model = ActorCritic(env.obs_dim, env.action_dim, agent_cfg.actor_hidden,
-                        agent_cfg.critic_hidden, agent_cfg.activation,
-                        agent_cfg.init_noise_std).to(device)
+    # the run's policy class and compute dtype
+    model = make_learner(env, agent_cfg).model
     model.load_state_dict(ck["learner"]["model"])
 
     state, obs = env.reset()
+    hidden = model.initial_hidden(args.num_envs, device) if recurrent \
+        else None
+    reset_prev = torch.zeros(args.num_envs, device=device)
     traj = {k: [] for k in ("observations", "actions", "positions", "yaws",
                             "rewards", "commands", "done", "quats")}
     with torch.no_grad():
         for _ in range(args.steps):
-            mean, _, _ = model(obs)            # deterministic policy
+            # the deterministic policy; a recurrent one's carry is reset
+            # where the previous step ended an episode
+            if recurrent:
+                hidden, mean, _, _ = model.step(hidden, obs, reset_prev)
+            else:
+                mean, _, _ = model(obs)
             state, out = env.step(state, mean)
             v = state.vehicle
             for k, x in (("observations", obs), ("actions", mean),
@@ -113,7 +117,7 @@ def main(argv=None):
                          ("rewards", out.reward), ("commands", state.command),
                          ("done", out.done), ("quats", v.quat)):
                 traj[k].append(x)
-            obs = out.obs
+            obs, reset_prev = out.obs, out.done.to(torch.float32)
     # one device->host copy per channel, after the rollout
     traj = {k: torch.stack(x).cpu().numpy() for k, x in traj.items()}
 

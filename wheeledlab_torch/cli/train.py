@@ -20,8 +20,9 @@ def build_parser() -> argparse.ArgumentParser:
                                             "(PyTorch/CUDA port)")
     p.add_argument("-r", "--run-config", default="RSS_DRIFT_CONFIG",
                    help="named run config (RSS_DRIFT_CONFIG, "
-                        "F1TENTH_DRIFT_CONFIG, RSS_ELEV_CONFIG, "
-                        "ELEV_GOAL_CONFIG)")
+                        "F1TENTH_DRIFT_CONFIG, RSS_DRIFT_RNN_CONFIG, "
+                        "RSS_ELEV_CONFIG, ELEV_GOAL_CONFIG, "
+                        "RSS_VISUAL_CONFIG)")
     p.add_argument("--num-envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--max-iterations", type=int, default=None)

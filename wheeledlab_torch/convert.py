@@ -14,6 +14,7 @@ import torch
 
 from .envs.env import EnvState
 from .rl.networks import ActorCritic
+from .rl.recurrent import CHAINS, ActorCriticRecurrent
 from .sim.soa import pack_params, pack_state
 from .sim.terrain import Heightfield
 from .sim.types import VehicleParams, VehicleState
@@ -27,27 +28,81 @@ def _t(x, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def actor_critic_from_jax(params_np, activation: str = "elu") -> ActorCritic:
+GATES = ("i", "f", "g", "o")     # flax OptimizedLSTMCell's gate order
+
+
+def _copy_heads(model, p):
+    """flax `actor`/`critic` Dense stacks and `log_std` into `model`'s
+    `nn.Sequential` heads (`weight = kernel.T`)."""
+    with torch.no_grad():
+        for name in ("actor", "critic"):
+            linears = [m for m in getattr(model, name)
+                       if isinstance(m, torch.nn.Linear)]
+            for i, lin in enumerate(linears):
+                d = p[name][f"Dense_{i}"]
+                lin.weight.copy_(_t(d["kernel"]).T)
+                lin.bias.copy_(_t(d["bias"]))
+        model.log_std.copy_(_t(p["log_std"]))
+
+
+def _hidden_widths(tree):
+    """Hidden widths of a flax `actor`/`critic` Dense stack."""
+    return tuple(np.shape(tree[f"Dense_{i}"]["kernel"])[1]
+                 for i in range(len(tree) - 1))
+
+
+def actor_critic_from_jax(params_np, activation: str = "elu",
+                          compute_dtype: str = "float32") -> ActorCritic:
     """flax ActorCritic params (`{'params': {'actor': {'Dense_i': {kernel
     (in, out), bias}}, 'critic': ..., 'log_std'}}`) -> an ActorCritic on the
     CPU with the same weights (`weight = kernel.T`)."""
     p = params_np["params"]
-    dense = lambda tree: [tree[f"Dense_{i}"] for i in range(len(tree))]
-    actor, critic = dense(p["actor"]), dense(p["critic"])
+    actor = p["actor"]
     model = ActorCritic(
-        obs_dim=np.shape(actor[0]["kernel"])[0],
-        action_dim=np.shape(actor[-1]["kernel"])[1],
-        actor_hidden=tuple(np.shape(d["kernel"])[1] for d in actor[:-1]),
-        critic_hidden=tuple(np.shape(d["kernel"])[1] for d in critic[:-1]),
-        activation=activation)
-    with torch.no_grad():
-        for seq, layers in ((model.actor, actor), (model.critic, critic)):
-            linears = [m for m in seq if isinstance(m, torch.nn.Linear)]
-            for lin, d in zip(linears, layers):
-                lin.weight.copy_(_t(d["kernel"]).T)
-                lin.bias.copy_(_t(d["bias"]))
-        model.log_std.copy_(_t(p["log_std"]))
+        obs_dim=np.shape(actor["Dense_0"]["kernel"])[0],
+        action_dim=np.shape(actor[f"Dense_{len(actor) - 1}"]["kernel"])[1],
+        actor_hidden=_hidden_widths(actor),
+        critic_hidden=_hidden_widths(p["critic"]),
+        activation=activation, compute_dtype=compute_dtype)
+    _copy_heads(model, p)
     return model
+
+
+def actor_critic_recurrent_from_jax(params_np, activation: str = "elu"
+                                    ) -> ActorCriticRecurrent:
+    """flax ActorCriticRecurrent params (`params/memory/lstm_{a,c}{i}/
+    {ii..io: kernel (in, H); hi..ho: kernel (H, H), bias}`, the heads as
+    `actor_critic_from_jax`'s, `log_std`) -> an ActorCriticRecurrent on the
+    CPU with the same weights: each cell's four input kernels concatenated
+    in gate order as `wi` (in, 4H), its recurrent kernels as `wh` (H, 4H)
+    and their biases as `bh`."""
+    p = params_np["params"]
+    mem = p["memory"]
+    layers = sum(k.startswith("lstm_a") for k in mem)
+    obs_dim, hidden = np.shape(mem["lstm_a0"]["ii"]["kernel"])
+    actor = p["actor"]
+    model = ActorCriticRecurrent(
+        obs_dim, np.shape(actor[f"Dense_{len(actor) - 1}"]["kernel"])[1],
+        _hidden_widths(actor), _hidden_widths(p["critic"]), activation,
+        rnn_hidden_size=hidden, rnn_num_layers=layers)
+    cat = lambda cell, side, leaf: _t(np.concatenate(
+        [cell[f"{side}{g}"][leaf] for g in GATES], axis=-1))
+    with torch.no_grad():
+        for chain, cells in (("a", model.lstm_a), ("c", model.lstm_c)):
+            for i, cell in enumerate(cells):
+                src = mem[f"lstm_{chain}{i}"]
+                cell.wi.copy_(cat(src, "i", "kernel"))
+                cell.wh.copy_(cat(src, "h", "kernel"))
+                cell.bh.copy_(cat(src, "h", "bias"))
+    _copy_heads(model, p)
+    return model
+
+
+def recurrent_hidden_from_jax(hidden_np, device="cpu"):
+    """The JAX hidden tree (`{'actor': ((c, h), ...), 'critic': ...}`, a
+    (c, h) pair a layer, numpy leaves) -> the port's (lists of pairs)."""
+    return {chain: [(_t(c, device=device), _t(h, device=device))
+                    for c, h in hidden_np[chain]] for chain in CHAINS}
 
 
 def env_state_from_jax(state_np, ground_friction: float = 1.0,

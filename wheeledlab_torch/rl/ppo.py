@@ -21,7 +21,7 @@ import torch
 from ..envs.env import EnvState, WheeledEnv
 from ..utils.config import configclass
 from .networks import (
-    ActorCritic, gaussian_entropy, gaussian_kl, gaussian_log_prob,
+    DTYPES, ActorCritic, gaussian_entropy, gaussian_kl, gaussian_log_prob,
 )
 
 
@@ -44,15 +44,22 @@ class PPOCfg:
     max_grad_norm: float = 1.0
     min_lr: float = 1.0e-5
     max_lr: float = 1.0e-2
-    policy_class: str = "ActorCritic"   # "ActorCriticRecurrent": not ported
+    # policy (rsl_rl RslRlPpoActorCriticCfg.class_name): "ActorCritic" |
+    # "ActorCriticRecurrent"
+    policy_class: str = "ActorCritic"
     actor_hidden: Tuple[int, ...] = (64, 64)
     critic_hidden: Tuple[int, ...] = (64, 64)
     activation: str = "elu"
     init_noise_std: float = 1.0
-    rnn_hidden_size: int = 256       # recurrent policy only (not ported)
+    rnn_hidden_size: int = 256       # recurrent policy only (rsl_rl default)
     rnn_num_layers: int = 1
     fuse_input_layer: bool = False   # TPU matmul-tiling knob; no effect here
-    compute_dtype: str = "float32"   # "bfloat16" is not ported
+    compute_dtype: str = "float32"
+    # ^ "bfloat16": the MLP policy computes in bfloat16 (float32 params and
+    # heads, `networks.dense`) and the rollout stores its obs in bfloat16.
+    # The dense layer rounds its input to bfloat16, so the update sees the
+    # same matmul inputs whichever dtype the obs were stored in. The
+    # recurrent learner ignores it (its cells are bfloat16 regardless).
 
 
 def init_info_acc(info: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -127,13 +134,13 @@ class PPO:
     """The learner: the policy, its optimizer and the learner's generator
     (action noise and the epoch permutation)."""
 
+    state_cls = TrainState
+
     def __init__(self, env: WheeledEnv, cfg: PPOCfg, seed: int = 0):
         self.env, self.cfg = env, cfg
         dev = env.device
-        self.model = ActorCritic(
-            env.obs_dim, env.action_dim, cfg.actor_hidden,
-            cfg.critic_hidden, cfg.activation, cfg.init_noise_std,
-            generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+        self.model = self.build_model(
+            torch.Generator().manual_seed(seed + 1)).to(dev)
         # fused Adam takes the learning rate as a device tensor, so the
         # adaptive schedule never syncs with the host
         self.optimizer = torch.optim.Adam(
@@ -141,6 +148,18 @@ class PPO:
             lr=torch.tensor(cfg.learning_rate, device=dev), fused=True)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed + 2)
+
+    def build_model(self, generator: torch.Generator) -> ActorCritic:
+        cfg, env = self.cfg, self.env
+        return ActorCritic(
+            env.obs_dim, env.action_dim, cfg.actor_hidden, cfg.critic_hidden,
+            cfg.activation, cfg.init_noise_std, generator=generator,
+            compute_dtype=cfg.compute_dtype)
+
+    @property
+    def obs_dtype(self) -> torch.dtype:
+        """The dtype the rollout stores its obs in (JAX `store_obs`)."""
+        return DTYPES[self.cfg.compute_dtype]
 
     @property
     def lr(self) -> torch.Tensor:
@@ -152,49 +171,67 @@ class PPO:
 
     # ------------------------------------------------------------- rollout
 
+    def new_traj(self, *extra: str) -> Dict[str, torch.Tensor]:
+        """Empty time-major [T, B, ...] rollout buffers: the transition's
+        columns, plus a [T, B] float column for each name in `extra`."""
+        cfg, env = self.cfg, self.env
+        shape = (cfg.num_steps_per_env, env.num_envs)
+        buf = lambda *s, dtype=torch.float32: torch.empty(
+            shape + s, dtype=dtype, device=env.device)
+        a = env.action_dim
+        traj = {"obs": buf(env.obs_dim, dtype=self.obs_dtype),
+                "action": buf(a), "log_prob": buf(), "value": buf(),
+                "reward": buf(), "done": buf(), "mean": buf(a),
+                "std": buf(a)}
+        traj.update({k: buf() for k in extra})
+        return traj
+
+    def act_and_step(self, traj, t, env_state, obs, mean, std, value, acc,
+                     captures=None):
+        """Sample the action from the policy's (mean, std), step the env
+        and store transition t in `traj` (with the timeout bootstrap
+        `reward += gamma * V * time_out`, rsl_rl process_env_step); fold
+        the step's info into `acc` (None before the first step) and, when
+        `captures` is a list, append the step's `traj_captures`. Returns
+        (env_state, step output, acc)."""
+        action = mean + std * torch.randn(
+            mean.shape, generator=self.generator, device=self.env.device)
+        log_prob = gaussian_log_prob(mean, std, action)
+        env_state, out = self.env.step(env_state, action)
+        reward = out.reward + self.cfg.gamma * value * out.time_out
+        for k, v in (("obs", obs), ("action", action),
+                     ("log_prob", log_prob), ("value", value),
+                     ("reward", reward), ("done", out.done),
+                     ("mean", mean), ("std", std)):
+            traj[k][t] = v
+        if acc is None:
+            acc = init_info_acc(out.info)
+        acc = accumulate_info(acc, out.info, out.done)
+        if captures is not None:
+            captures.append(traj_captures(env_state))
+        return env_state, out, acc
+
+    @staticmethod
+    def stack_captures(traj, captures):
+        """The `traj/*` channels of a captured rollout, [T, 8, ...]."""
+        for k in (captures[0] if captures else ()):
+            traj[k] = torch.stack([c[k] for c in captures])
+
     @torch.no_grad()
     def rollout(self, state: TrainState, capture_traj: bool = False):
         """Returns (env_state, obs, traj dict of time-major [T, B, ...]
         tensors, info accumulators). With `capture_traj` the dict also holds
         the `traj/*` channels of `traj_captures`, [T, 8, ...], for a
         video."""
-        cfg, env = self.cfg, self.env
-        t_len, n = cfg.num_steps_per_env, env.num_envs
-        dev = env.device
-        traj = {
-            "obs": torch.empty((t_len, n, env.obs_dim), device=dev),
-            "action": torch.empty((t_len, n, env.action_dim), device=dev),
-            "log_prob": torch.empty((t_len, n), device=dev),
-            "value": torch.empty((t_len, n), device=dev),
-            "reward": torch.empty((t_len, n), device=dev),
-            "done": torch.empty((t_len, n), device=dev),
-            "mean": torch.empty((t_len, n, env.action_dim), device=dev),
-            "std": torch.empty((t_len, n, env.action_dim), device=dev),
-        }
+        traj = self.new_traj()
         env_state, obs, acc = state.env_state, state.obs, None
-        captures = []
-        for t in range(t_len):
+        captures = [] if capture_traj else None
+        for t in range(self.cfg.num_steps_per_env):
             mean, std, value = self.model(obs)
-            action = mean + std * torch.randn(
-                mean.shape, generator=self.generator, device=dev)
-            log_prob = gaussian_log_prob(mean, std, action)
-            env_state, out = env.step(env_state, action)
-            # timeout bootstrap (rsl_rl process_env_step:
-            # rewards += gamma * value * time_out)
-            reward = out.reward + cfg.gamma * value * out.time_out
-            for k, v in (("obs", obs), ("action", action),
-                         ("log_prob", log_prob), ("value", value),
-                         ("reward", reward), ("done", out.done),
-                         ("mean", mean), ("std", std)):
-                traj[k][t] = v
-            if acc is None:
-                acc = init_info_acc(out.info)
-            acc = accumulate_info(acc, out.info, out.done)
-            if capture_traj:
-                captures.append(traj_captures(env_state))
+            env_state, out, acc = self.act_and_step(
+                traj, t, env_state, obs, mean, std, value, acc, captures)
             obs = out.obs
-        for k in (captures[0] if captures else ()):
-            traj[k] = torch.stack([c[k] for c in captures])
+        self.stack_captures(traj, captures)
         return env_state, obs, traj, acc
 
     # ----------------------------------------------------------------- GAE
@@ -223,10 +260,16 @@ class PPO:
 
     def loss(self, batch):
         """(total, (surrogate, value, entropy, kl)) of one minibatch."""
-        cfg = self.cfg
-        obs, action, old_log_prob, old_value, ret, adv, old_mean, old_std = \
-            batch
+        obs, *rest = batch
         mean, std, value = self.model(obs)
+        return self.ppo_loss(mean, std, value, *rest)
+
+    def ppo_loss(self, mean, std, value, action, old_log_prob, old_value,
+                 ret, adv, old_mean, old_std):
+        """The clipped surrogate, the (clipped) value loss, the entropy
+        bonus and the KL estimate of the policy's (mean, std, value) on a
+        minibatch."""
+        cfg = self.cfg
         log_prob = gaussian_log_prob(mean, std, action)
         ratio = torch.exp(log_prob - old_log_prob)
         surr1 = ratio * adv
@@ -278,23 +321,29 @@ class PPO:
     def update_epochs(self, dataset) -> torch.Tensor:
         """dataset: tuple of time-major [T, B, ...] tensors (obs, action,
         log_prob, value, returns, norm_adv, mean, std). One permutation
-        shared across epochs (rsl_rl's mini_batch_generator); the columns
-        are packed into one array so the shuffle is one gather. Returns
-        the mean of the minibatch metrics."""
+        shared across epochs (rsl_rl's mini_batch_generator); the float32
+        columns are packed into one array so the shuffle is one gather
+        (two when the obs are stored in bfloat16). Returns the mean of the
+        minibatch metrics."""
         cfg = self.cfg
         nb = cfg.num_mini_batches
         t_len, b = dataset[0].shape[:2]
         n = t_len * b
         mb = n // nb
         cols = [x.reshape(n, -1) for x in dataset]
-        widths = [c.shape[1] for c in cols]
         perm = torch.randperm(n, generator=self.generator,
-                              device=dataset[0].device)
-        shuffled = torch.cat(cols, dim=1)[perm][: mb * nb]
+                              device=dataset[0].device)[: mb * nb]
+        split = 1 if cols[0].dtype != cols[1].dtype else 0
+        packed = cols[split:]
+        widths = [c.shape[1] for c in packed]
+        shuffled = torch.cat(packed, dim=1)[perm]
+        obs = cols[0][perm] if split else None
         batches = []
         for i in range(nb):
-            block = shuffled[i * mb:(i + 1) * mb]
-            parts = torch.split(block, widths, dim=1)
+            rows = slice(i * mb, (i + 1) * mb)
+            parts = list(torch.split(shuffled[rows], widths, dim=1))
+            if split:
+                parts.insert(0, obs[rows])
             batches.append(tuple(
                 p if x.ndim == 3 else p[:, 0]
                 for p, x in zip(parts, dataset)))
@@ -305,21 +354,10 @@ class PPO:
 
     # ------------------------------------------------------ full iteration
 
-    def train_iteration(self, state: TrainState, capture_traj: bool = False
-                        ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One PPO iteration. With `capture_traj` the metrics also carry the
-        rollout's `traj/*` channels ([T, 8, ...] tensors, not scalars)."""
-        cfg = self.cfg
-        env_state, obs, traj, acc = self.rollout(state, capture_traj)
-        with torch.no_grad():
-            _, _, last_value = self.model(obs)
-            _, returns, norm_adv = self.compute_gae(
-                traj["reward"], traj["value"], traj["done"], last_value)
-        dataset = (traj["obs"], traj["action"], traj["log_prob"],
-                   traj["value"], returns, norm_adv, traj["mean"],
-                   traj["std"])
-        loss_metrics = self.update_epochs(dataset)
-
+    def iteration_metrics(self, traj, loss_metrics, acc
+                          ) -> Dict[str, torch.Tensor]:
+        """The iteration's metrics (the JAX learner's keys), with the
+        rollout's `traj/*` channels when it captured them."""
         # episode stats: mean over transitions where an episode finished
         num_dones = traj["done"].sum()
         n_done = torch.clamp(num_dones, min=1.0)
@@ -338,11 +376,28 @@ class PPO:
                                    & torch.isfinite(loss_metrics).all()
                                    ).to(torch.float32),
         }
-        metrics.update(finalize_info_acc(acc, cfg.num_steps_per_env, n_done))
+        metrics.update(finalize_info_acc(acc, self.cfg.num_steps_per_env,
+                                         n_done))
         metrics.update({k: v for k, v in traj.items()
                         if k.startswith("traj/")})
+        return metrics
+
+    def train_iteration(self, state: TrainState, capture_traj: bool = False
+                        ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One PPO iteration. With `capture_traj` the metrics also carry the
+        rollout's `traj/*` channels ([T, 8, ...] tensors, not scalars)."""
+        env_state, obs, traj, acc = self.rollout(state, capture_traj)
+        with torch.no_grad():
+            _, _, last_value = self.model(obs)
+            _, returns, norm_adv = self.compute_gae(
+                traj["reward"], traj["value"], traj["done"], last_value)
+        dataset = (traj["obs"], traj["action"], traj["log_prob"],
+                   traj["value"], returns, norm_adv, traj["mean"],
+                   traj["std"])
+        loss_metrics = self.update_epochs(dataset)
         return TrainState(env_state=env_state, obs=obs,
-                          iteration=state.iteration + 1), metrics
+                          iteration=state.iteration + 1), \
+            self.iteration_metrics(traj, loss_metrics, acc)
 
     # ---------------------------------------------------------- checkpoint
 
@@ -359,12 +414,14 @@ class PPO:
 
 def make_learner(env: WheeledEnv, cfg: PPOCfg, seed: int = 0) -> PPO:
     """Policy-class dispatch (rsl_rl resolves RslRlPpoActorCriticCfg
-    .class_name); the recurrent learner is not ported yet."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("only compute_dtype='float32' is ported")
+    .class_name to ActorCritic or ActorCriticRecurrent; the runner is
+    agnostic to which)."""
+    if cfg.compute_dtype not in DTYPES:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if cfg.policy_class == "ActorCritic":
         return PPO(env, cfg, seed)
     if cfg.policy_class == "ActorCriticRecurrent":
-        raise NotImplementedError(
-            "the recurrent learner (ActorCriticRecurrent) is not ported yet")
+        from .recurrent import RecurrentPPO
+
+        return RecurrentPPO(env, cfg, seed)
     raise ValueError(f"unknown policy_class {cfg.policy_class!r}")

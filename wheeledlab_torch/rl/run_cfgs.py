@@ -1,7 +1,7 @@
 """Named run configs — the port of `wheeledlab_tpu/rl/run_cfgs.py` for the
 drift, elevation and visual tasks (reference configs/runs/rss_cfgs.py:8-53,
-runs/f1tenth_cfgs.py:7-21). RSS_DRIFT_RNN_CONFIG and POD_DRIFT_CONFIG are
-registered when their learner and multi-process training are ported."""
+runs/f1tenth_cfgs.py:7-21) and the recurrent drift variant.
+POD_DRIFT_CONFIG is registered when multi-process training is ported."""
 
 from __future__ import annotations
 
@@ -56,6 +56,18 @@ F1TENTH_DRIFT_CONFIG = RunConfig(
     agent=DRIFT_PPO,
 )
 
+# Recurrent drift variant: the rsl_rl ActorCriticRecurrent family (beyond
+# the reference's registered configs, which all use the plain ActorCritic,
+# rsl_rl_ppo_cfg.py:12); LSTM-256, one layer, separate actor and critic
+# chains
+RSS_DRIFT_RNN_CONFIG = RunConfig(
+    task_name="MushrDriftRL-v0",
+    num_envs=1024,
+    train=TrainCfg(num_iterations=1500, log=LogCfg()),
+    agent=DRIFT_PPO.replace(policy_class="ActorCriticRecurrent"),
+)
+
 for _name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG", "RSS_VISUAL_CONFIG",
-              "ELEV_GOAL_CONFIG", "F1TENTH_DRIFT_CONFIG"):
+              "ELEV_GOAL_CONFIG", "F1TENTH_DRIFT_CONFIG",
+              "RSS_DRIFT_RNN_CONFIG"):
     RUN_CONFIGS.register(_name, globals()[_name])

@@ -5,8 +5,8 @@ logging).
 The loop runs one `train_iteration` per iteration and reads metrics back
 to the host only every `log_every` iterations. Checkpoints hold the FULL
 train state: the policy, Adam's state with its current learning rate, the
-env state and both generators' states, so `train.load_run` resumes exactly
-where a run stopped."""
+env state, both generators' states and, for a recurrent run, the LSTM
+carry, so `train.load_run` resumes exactly where a run stopped."""
 
 from __future__ import annotations
 
@@ -111,8 +111,14 @@ def _checkpoint_dir(run_dir: str) -> str:
     return os.path.join(run_dir, "checkpoints")
 
 
+# the recurrent learner's carry (`recurrent.RecurrentTrainState`): the LSTM
+# hidden state and the previous step's done flags
+_CARRY = ("hidden", "reset_prev")
+
+
 def save_checkpoint(run_dir: str, learner, state: TrainState):
-    """`<run_dir>/checkpoints/<iteration>.pt`, written atomically."""
+    """`<run_dir>/checkpoints/<iteration>.pt`, written atomically; a
+    recurrent run's also holds its carry."""
     ckpt_dir = _checkpoint_dir(run_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"{state.iteration}.pt")
@@ -122,6 +128,7 @@ def save_checkpoint(run_dir: str, learner, state: TrainState):
         "env_generator": learner.env.generator.get_state(),
         "env_state": dataclasses.asdict(state.env_state),
         "obs": state.obs,
+        **{k: getattr(state, k) for k in _CARRY if hasattr(state, k)},
     }, path + ".tmp")
     os.replace(path + ".tmp", path)
 
@@ -146,8 +153,9 @@ def restore_checkpoint(run_dir: str, step: int, learner) -> TrainState:
     ck = torch.load(path, map_location=learner.env.device, weights_only=True)
     learner.load_state_dict(ck["learner"])
     learner.env.generator.set_state(ck["env_generator"])
-    return TrainState(env_state=EnvState(**ck["env_state"]), obs=ck["obs"],
-                      iteration=ck["iteration"])
+    return learner.state_cls(
+        env_state=EnvState(**ck["env_state"]), obs=ck["obs"],
+        iteration=ck["iteration"], **{k: ck[k] for k in _CARRY if k in ck})
 
 
 # -------------------------------------------------------------------- train
