@@ -12,8 +12,10 @@ printing its final line:
              build time and each ptxas resource report.
 3. kernel  — hold each kernel against its plain PyTorch version on the
              card; every env must agree (K4, K5a, K5b: see below):
-             K1, the fused drift step (`drift_step_rows`), at 16384, 1024,
-             1000, 7 and 1 envs (the last three leave a warp partly empty
+             K1, the fused drift step (`drift_step_rows`), at 65536 and
+             32768 envs (POD_DRIFT_CONFIG's widths on one rank and on each
+             of two), 16384, 1024, 1000, 7 and 1 envs (the last three leave
+             a warp partly empty
              or a group count that is no multiple of 8), for MuSHR and
              F1Tenth, with push events, observation noise, resets and
              time-outs firing, and on the state an env starts from (every
@@ -33,8 +35,10 @@ printing its final line:
              normals within tolerance;
              K4, the fused drift step that draws its rows in the kernel
              (`philox_blocks` + `drift_step_rows`), at 16384, 1024, 1000, 7
-             and 1 envs, both robots, noise on and off, and bit for bit
-             against K1 fed K5b's rows;
+             and 1 envs, both robots, noise on and off, and at 32768 envs
+             (a rank's half of POD_DRIFT_CONFIG) on the seed rank 1 hands
+             the kernel (a drawn seed plus 0x3779B1, wrapped to int32), and
+             bit for bit against K1 fed K5b's rows;
              K5a, the K-step resident rollout (K chained `drift_step_rows`),
              at K = 1, 2, 4, 8 and the same widths, both robots, and against
              K chained K1 launches;
@@ -99,6 +103,21 @@ printing its final line:
              launches from torch.profiler's record of the card, beside the
              wall ms of the same calls unprofiled.
 
+8. distributed — POD_DRIFT_CONFIG (65,536 envs) over torch.distributed
+             on the one card, last and in processes of its own:
+             `torchrun --nproc_per_node 1` running this script's
+             `--pod-cli` mode, which calls the train CLI over the job's
+             NCCL group (2 iterations, 256 K1 launches, finite metrics);
+             two ranks over gloo (this script's `--gloo-rank` mode; NCCL
+             refuses two ranks on one card), 32,768 envs each: 2
+             iterations on K1 (256 launches a rank) and 1 on K4 (128 a
+             rank), the same metrics and parameter hash on both ranks and
+             rank 1's K4 seed offset 0x3779B1; in both jobs a `train()`
+             with `train.profile` at 4,096 envs, whose trace on rank 0 must
+             hold kernels of the card, K1 among them; `scripts.scale_bench`
+             at world size 1, rollout and full PPO. Every subprocess runs in a
+             session of its own, killed if it outlives JOB_TIMEOUT_S.
+
 Every launch counter is set to 0 just before a path is driven and read just
 after. It imports nothing of JAX. The last line is the result object.
 """
@@ -109,6 +128,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -177,6 +197,8 @@ PREV_DESIGN = {
 NO_SPILLS = ", 0 bytes spill stores, 0 bytes spill loads"
 # widths that leave a warp partly empty or a group count off a multiple of 8
 TAIL_WIDTHS = (1000, 7, 1)
+# POD_DRIFT_CONFIG's env batch: all of it on one rank, or a rank's half
+POD_ENVS, POD_RANK_ENVS = 65536, 32768
 K4_REPLACES = "wheeledlab_tpu/tasks/drift/fused.py:512"
 K5A_REPLACES = "scripts/limiter_probe.py:80"
 K5B_REPLACES = "scripts/check_kernel_rng.py:50"
@@ -357,7 +379,7 @@ def kernel_phase(device):
           flush=True)
     max_err, cases = 0.0, {}
     for robot in ("mushr", "f1tenth"):
-        for b in (16384, 1024) + TAIL_WIDTHS:
+        for b in (POD_ENVS, POD_RANK_ENVS, 16384, 1024) + TAIL_WIDTHS:
             cfg, x = step_inputs(robot, b, seed=b + len(robot), device=device)
             got = kernel_step(cfg, x)
             torch.cuda.synchronize()
@@ -655,6 +677,7 @@ def rng_kernel_phase(device, cases):
 
     from wheeledlab_torch.ops.kernel_rng import philox_blocks, rng_blocks
     from wheeledlab_torch.ops.multi_step import multi_step, multi_step_rows
+    from wheeledlab_torch.parallel.mesh import int32_shard_offset
     from wheeledlab_torch.tasks.drift.fused import fused_drift_step_krng
 
     phase("kernel (K4, K5a, K5b)")
@@ -682,6 +705,29 @@ def rng_kernel_phase(device, cases):
             kept[("K5b", b)] = seed
 
     # K4: against Philox rows + the plain step, and against K1 fed K5b's rows
+    def k4_case(robot, b, noise, cfg, x, seed, label=""):
+        z = without_rows(x)
+        got = fused_drift_step_krng(cfg=cfg, seed=seed, **z)
+        torch.cuda.synchronize()
+        want = plain_step_krng(cfg, x, seed)
+        err, flipped = compare(got, want)
+        uniforms, normals = rng_blocks(seed, b)
+        via_k1 = kernel_step(cfg, {**z, "uniforms": uniforms,
+                                   "normals": normals})
+        differ = envs_not_bit_equal(got, via_k1)
+        resets = int(want[2][1].sum())
+        print(f"K4 {robot} B={b} noise {noise}{label}: max_abs_err "
+              f"{err:.3e}, envs beyond tolerance {flipped}, resets "
+              f"{resets}; envs not bit-equal to K1 fed K5b's rows "
+              f"{differ}", flush=True)
+        errs["K4"] = max(errs["K4"], err)
+        if flipped or differ:
+            failures.append(f"K4 {robot} B={b} noise {noise}{label}: "
+                            f"{flipped} beyond, {differ} not equal to K1")
+        if b >= 1000 and (resets == 0 or int(want[2][2].sum()) == 0):
+            raise AssertionError("inputs fired no reset or time-out")
+        return z
+
     for robot in ("mushr", "f1tenth"):
         for b in (16384, 1024) + TAIL_WIDTHS:
             for noise in (True, False):
@@ -693,28 +739,18 @@ def rng_kernel_phase(device, cases):
                                          enable_corruption=False)
                 seed = torch.tensor([b + 7 * noise], dtype=torch.int32,
                                     device=device)
-                z = without_rows(x)
-                got = fused_drift_step_krng(cfg=cfg, seed=seed, **z)
-                torch.cuda.synchronize()
-                want = plain_step_krng(cfg, x, seed)
-                err, flipped = compare(got, want)
-                uniforms, normals = rng_blocks(seed, b)
-                via_k1 = kernel_step(cfg, {**z, "uniforms": uniforms,
-                                           "normals": normals})
-                differ = envs_not_bit_equal(got, via_k1)
-                resets = int(want[2][1].sum())
-                print(f"K4 {robot} B={b} noise {noise}: max_abs_err "
-                      f"{err:.3e}, envs beyond tolerance {flipped}, resets "
-                      f"{resets}; envs not bit-equal to K1 fed K5b's rows "
-                      f"{differ}", flush=True)
-                errs["K4"] = max(errs["K4"], err)
-                if flipped or differ:
-                    failures.append(f"K4 {robot} B={b} noise {noise}: "
-                                    f"{flipped} beyond, {differ} not equal "
-                                    f"to K1")
-                if b >= 1000 and (resets == 0 or int(want[2][2].sum()) == 0):
-                    raise AssertionError("inputs fired no reset or time-out")
+                z = k4_case(robot, b, noise, cfg, x, seed)
                 kept[("K4", robot, b, noise)] = (cfg, z, seed)
+    # a rank's width of the 2-rank POD job, on the seed rank 1's env hands
+    # the kernel for a drawn seed near the top of int32: the drawn seed plus
+    # 0x3779B1, wrapped
+    drawn = torch.tensor([2**31 - 2], dtype=torch.int32, device=device)
+    seed = drawn + int32_shard_offset(1)
+    if int(seed) != int32_shard_offset(1) - 2**31 - 2:
+        raise AssertionError(f"rank 1's seed {int(seed)} did not wrap")
+    cfg, x = cases[("mushr", POD_RANK_ENVS)]
+    k4_case("mushr", POD_RANK_ENVS, True, cfg, x, seed,
+            f", rank 1's seed {int(seed)}")
 
     # K5a: against K chained plain steps (the check), and against K chained
     # K1 launches. K5a is built without FMA contraction and K1 with it, so
@@ -824,11 +860,7 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
     obs = state.obs
     if tuple(obs.shape) != (envs, obs_dim) or not torch.isfinite(obs).all():
         raise AssertionError("final observation malformed")
-    prev, iter_ms = 0.0, []
-    for row in rows:
-        cum = row["time/iterate_s"] + row.get("time/device_sync_s", 0.0)
-        iter_ms.append(1000.0 * (cum - prev))
-        prev = cum
+    iter_ms = iteration_ms(rows)
     steps = cfg.num_envs * cfg.agent.num_steps_per_env
     print(f"{config}: iteration ms {[round(t, 3) for t in iter_ms]}; "
           f"env-steps/s (last iteration) {steps / (iter_ms[-1] / 1000.0):.1f}"
@@ -1462,6 +1494,314 @@ def script_phase():
     return k5b["K5b"], k5a["K5a"], k1["K1"], rows
 
 
+# ------------------------------------------------------------ distributed
+
+POD_ITERS = 2          # K1 iterations of each POD run
+POD_KRNG_ITERS = 1     # K4 iterations of the 2-rank job
+JOB_TIMEOUT_S = 600
+
+
+def iteration_ms(rows):
+    """Per-iteration wall ms of a run's metrics.jsonl rows (logged every
+    iteration): the iterate and device_sync phases, which end on the host
+    read of the iteration's metrics."""
+    prev, out = 0.0, []
+    for row in rows:
+        cum = row["time/iterate_s"] + row.get("time/device_sync_s", 0.0)
+        out.append(1000.0 * (cum - prev))
+        prev = cum
+    return out
+
+
+def run_group(cmds, timeout=JOB_TIMEOUT_S):
+    """Run `cmds` together, each in a session of its own; kill every
+    session when one outlives `timeout`. Returns their stdouts; raises
+    unless each exits 0."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=here,
+                              start_new_session=True) for cmd in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{' '.join(cmds[0][:4])} ... failed "
+                                 f"({p.returncode}):\n{out[-6000:]}")
+    return outs
+
+
+def tagged(out, tag):
+    """The JSON object of the line of `out` that starts with `tag`."""
+    lines = [line for line in out.splitlines() if line.startswith(tag + " ")]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one {tag} line in:\n{out[-6000:]}")
+    return json.loads(lines[0][len(tag) + 1:])
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pod_cli_worker(logs):
+    """`--pod-cli LOGS` (run by torchrun): the train CLI on
+    POD_DRIFT_CONFIG at full width for POD_ITERS iterations, over the job's
+    NCCL group; prints `POD_CLI {...}` with the backend, the world size and
+    this process's kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from wheeledlab_torch.cli import train as train_cli
+    from wheeledlab_torch.parallel import distributed
+
+    distributed.initialize(device="cuda")     # torchrun's variables: NCCL
+    backend, world = dist.get_backend(), dist.get_world_size()
+    reset_launches()
+    train_cli.main(["-r", "POD_DRIFT_CONFIG",
+                    f"train.num_iterations={POD_ITERS}",
+                    "train.log.log_every=1", f"train.log.logs_dir={logs}",
+                    "train.log.run_name=pod"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print("POD_CLI " + json.dumps({
+        "backend": backend, "world_size": world, "launches": launches,
+        "profile": profiled_train(logs, "nccl")}), flush=True)
+
+
+PROFILE_ENVS = 4096     # the profiled distributed run's envs, all ranks
+
+
+def profiled_train(logs, tag):
+    """`train()` of POD_DRIFT_CONFIG cut to PROFILE_ENVS envs, 8 steps and
+    1 epoch (a short trace), with `train.profile` (rank 0 traces iterations
+    10-12) in this process's job.
+    Returns, on rank 0, the kernel events of its trace and how many of them
+    are K1's; None on the other ranks."""
+    import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.parallel import distributed
+    from wheeledlab_torch.rl.runner import train
+    from wheeledlab_torch.utils.config import RUN_CONFIGS, apply_overrides
+
+    run = f"profiled-{tag}"
+    train(apply_overrides(RUN_CONFIGS.get("POD_DRIFT_CONFIG"), {
+        "num_envs": PROFILE_ENVS, "agent.num_steps_per_env": 8,
+        "agent.num_learning_epochs": 1, "train.num_iterations": 13,
+        "train.profile": True, "train.log.no_checkpoints": True,
+        "train.log.logs_dir": logs, "train.log.run_name": run}),
+        verbose=False)
+    if not distributed.is_main_process():
+        return None
+    with open(os.path.join(logs, run, "trace.json")) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    return {"kernels": len(kernels),
+            "k1": sum("fused_drift_kernel" in e["name"] for e in kernels)}
+
+
+def check_profile(what, prof):
+    """A profiled iteration of a distributed `train()` recorded the card."""
+    if not prof or not prof["kernels"] or not prof["k1"]:
+        raise AssertionError(f"{what}: rank 0's trace holds no kernel of "
+                             f"the card: {prof}")
+    print(f"{what}: rank 0's trace of iterations 10-12 holds "
+          f"{prof['kernels']} kernels, {prof['k1']} of them K1", flush=True)
+
+
+def param_hash(learner):
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in learner.model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gloo_iterations(cfg, iters, seeds=None):
+    """`iters` iterations of this rank's learner, built as `train()` builds
+    it (`runner.setup`); returns per-iteration metrics, parameter hashes
+    and wall ms, and the launches of those iterations. With `seeds` (a
+    list) it gets the drawn and the used K4 seed of the first step."""
+    import torch
+
+    from wheeledlab_torch.rl.runner import setup
+    from wheeledlab_torch.tasks.drift import fused
+
+    world, env, learner = setup(cfg)
+    state = learner.init_state()
+    torch.cuda.synchronize()
+    wrapped = fused.fused_drift_step_krng
+    if seeds is not None:
+        before = env.generator.get_state()
+        seeds.append(int(torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32,
+                                       generator=env.generator,
+                                       device=env.device)))
+        env.generator.set_state(before)
+
+        def spy(*args, **kw):
+            if len(seeds) == 1:
+                seeds.append(int(args[5]))
+            return wrapped(*args, **kw)
+
+        fused.fused_drift_step_krng = spy
+    out = {"world": [world.rank, world.size], "envs": env.num_envs,
+           "metrics": [], "params": [], "ms": []}
+    try:
+        reset_launches()
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            state, m = learner.train_iteration(state)
+            names = sorted(m)
+            values = torch.stack([m[k].float() for k in names]).tolist()
+            out["ms"].append(1000.0 * (time.perf_counter() - t0))
+            out["metrics"].append(dict(zip(names, values)))
+            out["params"].append(param_hash(learner))
+        torch.cuda.synchronize()
+        out["launches"] = read_launches()
+    finally:
+        fused.fused_drift_step_krng = wrapped
+    return out
+
+
+def gloo_worker(rank, port, logs):
+    """`--gloo-rank R PORT LOGS`: rank R of a 2-rank gloo job on the one
+    card: POD_ITERS iterations of POD_DRIFT_CONFIG (32768 envs a rank) on
+    K1, then POD_KRNG_ITERS on K4, then `profiled_train`; prints
+    `GLOO {...}`."""
+    import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.parallel import distributed
+    from wheeledlab_torch.utils.config import RUN_CONFIGS
+
+    distributed.initialize(backend="gloo",
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, device="cuda",
+                           timeout_s=JOB_TIMEOUT_S)
+    try:
+        cfg = RUN_CONFIGS.get("POD_DRIFT_CONFIG")
+        k1 = gloo_iterations(cfg, POD_ITERS)
+        os.environ["WHEELEDLAB_KERNEL_RNG"] = "1"   # read when the env is built
+        seeds = []
+        k4 = gloo_iterations(cfg, POD_KRNG_ITERS, seeds)
+        del os.environ["WHEELEDLAB_KERNEL_RNG"]
+        k4["seed_drawn"], k4["seed_used"] = seeds
+        print("GLOO " + json.dumps({"k1": k1, "k4": k4,
+                                    "profile": profiled_train(logs, "gloo")}),
+              flush=True)
+    finally:
+        distributed.shutdown()
+
+
+def distributed_phase(logs, card):
+    """POD_DRIFT_CONFIG (65,536 envs) over torch.distributed on the one
+    card: (1) the train CLI under torchrun, one rank over NCCL
+    (POD_ITERS x 128 K1 launches); (2) two ranks over gloo, 32,768 envs
+    each (POD_ITERS x 128 K1 launches a rank, then POD_KRNG_ITERS x 128 K4
+    with rank 1's seed offset), identical metrics and parameters on both
+    ranks; each job then runs `profiled_train`, whose trace on rank 0 must
+    record the card; (3) scale_bench at world size 1, rollout and full
+    PPO. Returns the numbers for the kernels line."""
+    from wheeledlab_torch.parallel.mesh import int32_shard_offset
+
+    phase("distributed (POD_DRIFT_CONFIG)")
+    script = os.path.abspath(__file__)
+    py = sys.executable
+    t0 = time.perf_counter()
+    (out,) = run_group([[py, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node", "1", script, "--pod-cli",
+                         logs]])
+    pod = tagged(out, "POD_CLI")
+    if (pod["backend"], pod["world_size"]) != ("nccl", 1):
+        raise AssertionError(f"torchrun job: {pod}")
+    check_launches("POD_DRIFT_CONFIG (torchrun, 1 rank, NCCL)",
+                   pod["launches"], {**NO_LAUNCHES, "K1": POD_ITERS * 128})
+    with open(os.path.join(logs, "pod", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["iteration"] for r in rows] != list(range(1, POD_ITERS + 1)):
+        raise AssertionError(f"POD metrics rows {rows}")
+    for row in rows:
+        bad = {k: v for k, v in row.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"POD metrics not finite: {bad}")
+    check_profile("torchrun job (1 rank, NCCL)", pod["profile"])
+    pod_ms = iteration_ms(rows)
+    print(f"POD_DRIFT_CONFIG (1 rank, NCCL, 65536 envs): iteration ms "
+          f"{pod_ms}; env-steps/s (last) "
+          f"{65536 * 128 / (pod_ms[-1] / 1000.0):.1f}; "
+          f"{time.perf_counter() - t0:.1f} s with the launch; {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    port = free_port()
+    outs = run_group([[py, script, "--gloo-rank", str(r), str(port), logs]
+                      for r in range(2)])
+    ranks = [tagged(out, "GLOO") for out in outs]
+    check_profile("gloo job (2 ranks)", ranks[0]["profile"])
+    if ranks[1]["profile"] is not None:
+        raise AssertionError("rank 1 wrote a trace")
+    for route, kernel, iters in (("k1", "K1", POD_ITERS),
+                                 ("k4", "K4", POD_KRNG_ITERS)):
+        r0, r1 = (r[route] for r in ranks)
+        for r, res in enumerate((r0, r1)):
+            if res["world"] != [r, 2] or res["envs"] != 32768:
+                raise AssertionError(f"rank {r}: {res['world']} "
+                                     f"{res['envs']} envs")
+            check_launches(f"POD_DRIFT_CONFIG rank {r} of 2 (gloo, "
+                           f"{route})", res["launches"],
+                           {**NO_LAUNCHES, kernel: iters * 128})
+        if r0["metrics"] != r1["metrics"] or r0["params"] != r1["params"]:
+            raise AssertionError(f"{route}: the ranks disagree:\n{r0}\n{r1}")
+        for m in r0["metrics"]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{route}: metrics not finite: {m}")
+        print(f"2 ranks, gloo, {kernel}: identical metrics and parameters "
+              f"(sha256 {r0['params'][-1][:16]}); iteration ms rank 0 "
+              f"{[round(t, 3) for t in r0['ms']]}, rank 1 "
+              f"{[round(t, 3) for t in r1['ms']]}; {card}", flush=True)
+    offsets = []
+    for r, res in enumerate(ranks):
+        k4 = res["k4"]
+        off = (k4["seed_used"] - k4["seed_drawn"] + 2**31) % 2**32 - 2**31
+        if off != int32_shard_offset(r):
+            raise AssertionError(f"rank {r}: K4 seed {k4['seed_used']}, "
+                                 f"drawn {k4['seed_drawn']}")
+        offsets.append(off)
+    print(f"K4 seed offsets of ranks 0, 1: {offsets} (0x3779B1 = "
+          f"{0x3779B1}); gloo job {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    rows = []
+    for extra in ([], ["--full-ppo"]):
+        (out,) = run_group([[py, "-m", "wheeledlab_torch.scripts.scale_bench",
+                             "--envs-per-device", "65536", *extra]])
+        row = json.loads(out.strip().splitlines()[-1])
+        if (row["world_size"] != 1 or row["device"] != card
+                or not math.isfinite(row["aggregate_env_steps_per_s"])):
+            raise AssertionError(f"scale_bench row {row}")
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return {"pod_torchrun_launches": pod["launches"]["K1"],
+            "pod_torchrun_iteration_ms": pod_ms,
+            "pod_gloo_rank_launches": [r["k1"]["launches"]["K1"]
+                                       for r in ranks],
+            "pod_gloo_iteration_ms": [r["k1"]["ms"] for r in ranks],
+            "pod_gloo_krng_launches": [r["k4"]["launches"]["K4"]
+                                       for r in ranks],
+            "pod_gloo_krng_iteration_ms": [r["k4"]["ms"] for r in ranks],
+            "pod_gloo_krng_seed_offsets": offsets,
+            "scale_bench": rows}
+
+
 def timed(fn, window_s=TIMING_WINDOW_S, min_calls=4):
     """ms per call from CUDA events over a window of >= window_s and
     >= min_calls, after two warmup calls."""
@@ -1834,6 +2174,11 @@ def main():
     timing = timing_phase(cases, phys_cases, vis_cases, card, registers)
     timing.update(rng_timing_phase(cases, kept, card, registers))
     breakdown = visual_step_breakdown(device, card)
+    # last: it runs in processes of its own, after every profiled phase
+    # (torch.profiler recorded nothing on the card in the visual step
+    # breakdown once this phase had run before it in this process)
+    with tempfile.TemporaryDirectory() as logs:
+        pod = distributed_phase(logs, card)
     # what drawing the rows in the kernel costs over reading them (K1), in
     # this run's graph times
     premium = {b: timing[("K4", b)]["graph_ms"] - timing[("K1", b)]["graph_ms"]
@@ -1857,6 +2202,8 @@ def main():
                     **{f"rnn_{k}": v for k, v in rnn_split.items()},
                     rnn_forward_card_vs_cpu_max_abs_d=rnn_forward_d,
                     mppi_demo_launches=mppi_launches,
+                    **{k: v for k, v in pod.items()
+                       if not k.startswith("pod_gloo_krng")},
                     standing_start_graph_ms=standing[1024]["K1"]["graph_ms"],
                     standing_start_graph_ms_16384=standing[16384]["K1"][
                         "graph_ms"],
@@ -1897,6 +2244,8 @@ def main():
                     k4_launches, rng_err["K4"], k("K4"), 1024, 16384,
                     registers.get("fused_drift_krng"),
                     train_iteration_ms=krng_ms,
+                    **{k: v for k, v in pod.items()
+                       if k.startswith("pod_gloo_krng")},
                     **extra(k("K4")[1024], "k1_plus_rng_ms",
                             "k1_plus_rng_graph_ms"),
                     k1_plus_rng_ms_16384=k("K4")[16384]["k1_plus_rng_ms"],
@@ -1934,4 +2283,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pod-cli"]:
+        pod_cli_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

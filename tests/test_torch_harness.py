@@ -1,0 +1,296 @@
+"""The rest of the port's training harness on the CPU: the wandb sink
+(driven through a real tiny `train()` with a stub `wandb` module, as
+tests/test_wandb.py drives the JAX runner), checkpoints written off the
+training thread, `scripts/train_bench.py` and `utils/profiling.py` held
+against `wheeledlab_tpu/utils/profiling.py`."""
+
+import json
+import os
+import sys
+import threading
+import time
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wheeledlab_tpu.utils import profiling as jprof
+import wheeledlab_torch.rl  # noqa: F401  registers run configs
+from wheeledlab_torch.rl import runner
+from wheeledlab_torch.rl.runner import CheckpointWriter, train
+from wheeledlab_torch.utils import profiling
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_train import jax_runner_keys, read_metrics, tiny_cfg  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+class _FakeRun:
+    def __init__(self):
+        self.logged = []
+        self.finished = False
+
+    def log(self, payload, step=None):
+        self.logged.append((step, payload))
+
+    def finish(self):
+        self.finished = True
+
+
+class _FakeVideo:
+    def __init__(self, data, fps=None):
+        assert data.ndim == 4 and data.shape[1] == 3  # (T, C, H, W)
+        self.data = data
+        self.fps = fps
+
+
+@pytest.fixture
+def fake_wandb(monkeypatch):
+    mod = types.ModuleType("wandb")
+    mod.run = _FakeRun()
+    mod.init = lambda **kw: mod.run
+    mod.Video = _FakeVideo
+    monkeypatch.setitem(sys.modules, "wandb", mod)
+    return mod
+
+
+def cli_args(tmp_path, name, iterations, *extra):
+    return ["-r", "RSS_DRIFT_CONFIG", "--device", "cpu", "num_envs=16",
+            f"train.num_iterations={iterations}", "agent.num_steps_per_env=8",
+            "agent.num_learning_epochs=2", "agent.num_mini_batches=2",
+            "train.log.no_checkpoints=True", f"train.log.logs_dir={tmp_path}",
+            f"train.log.run_name={name}", *extra]
+
+
+class TestWandbSink:
+    def test_metrics_and_video_uploaded(self, fake_wandb, tmp_path):
+        from wheeledlab_torch.cli.train import main
+
+        main(cli_args(tmp_path, "w1", 4, "train.log.log_every=2",
+                      "train.log.no_wandb=False", "--video",
+                      "train.log.video_interval=2"))
+        logged = fake_wandb.run.logged
+        metric_steps = [s for s, p in logged if "video" not in p]
+        assert metric_steps == [2, 4]
+        for _, p in logged:
+            if "video" not in p:
+                # the JAX runner's keys, as metrics.jsonl holds them
+                assert {k for k in p if not k.startswith("time/")} \
+                    == jax_runner_keys()
+        videos = [p["video"] for _, p in logged if "video" in p]
+        assert len(videos) == 2
+        assert isinstance(videos[0], _FakeVideo)
+        assert videos[0].data.dtype == np.uint8
+        assert fake_wandb.run.finished
+
+    def test_no_wandb_default_keeps_offline(self, fake_wandb, tmp_path):
+        from wheeledlab_torch.cli.train import main
+
+        main(cli_args(tmp_path, "w2", 2, "train.log.log_every=1"))
+        assert fake_wandb.run.logged == []
+        assert len(read_metrics(tmp_path, "w2")) == 2
+
+    @pytest.mark.parametrize("failure", ["missing", "init_fails"])
+    def test_without_wandb_training_carries_on(self, monkeypatch, tmp_path,
+                                               failure):
+        if failure == "missing":
+            monkeypatch.setitem(sys.modules, "wandb", None)  # ImportError
+        else:
+            mod = types.ModuleType("wandb")
+
+            def init(**kw):
+                raise RuntimeError("no network")
+
+            mod.init = init
+            monkeypatch.setitem(sys.modules, "wandb", mod)
+        state, _ = train(tiny_cfg(tmp_path, "w3", 2, **{
+            "train.log.no_wandb": False}), verbose=False)
+        assert state.iteration == 2
+        assert [r["iteration"] for r in read_metrics(tmp_path, "w3")] \
+            == [1, 2]
+
+
+class TestCheckpointWriter:
+    def test_write_happens_off_the_training_thread(self, monkeypatch,
+                                                   tmp_path):
+        """`save` returns while the file is still being written, holding a
+        copy: changing the tensor afterwards does not reach the file."""
+        gate, threads = threading.Event(), []
+        real_save = torch.save
+
+        def held_save(obj, f):
+            threads.append(threading.current_thread().name)
+            assert gate.wait(30)
+            real_save(obj, f)
+
+        monkeypatch.setattr(torch, "save", held_save)
+        t = torch.arange(6, dtype=torch.float32)
+        path = str(tmp_path / "ck" / "1.pt")
+        writer = CheckpointWriter()
+        writer.save(path, {"t": t, "nested": [(t, 3)]})
+        t.add_(100.0)
+        assert not os.path.exists(path)
+        gate.set()
+        writer.wait()
+        assert threads == ["checkpoint-writer"]
+        ck = torch.load(path, weights_only=True)
+        assert torch.equal(ck["t"], torch.arange(6, dtype=torch.float32))
+        assert torch.equal(ck["nested"][0][0], ck["t"])
+        assert ck["nested"][0][1] == 3
+        assert os.listdir(tmp_path / "ck") == ["1.pt"]
+
+    def test_write_error_raised_by_wait(self, tmp_path):
+        (tmp_path / "file").write_text("")
+        writer = CheckpointWriter()
+        writer.save(str(tmp_path / "file" / "1.pt"), {"x": torch.zeros(1)})
+        with pytest.raises(OSError):
+            writer.wait()
+        writer.wait()   # reported once
+
+    @pytest.mark.parametrize("policy", ["ActorCritic", "ActorCriticRecurrent"])
+    def test_resume_bit_for_bit(self, tmp_path, policy):
+        """A run resumed from a checkpoint written off the training thread
+        continues exactly as a straight run: every metric that does not
+        depend on the clock is equal."""
+        extra = {"agent.policy_class": policy, "agent.rnn_hidden_size": 8}
+        train(tiny_cfg(tmp_path, "a", 2, **extra), verbose=False)
+        assert runner.checkpoint_steps(str(tmp_path / "a")) == [1, 2]
+        train(tiny_cfg(tmp_path, "b", 3, **{"train.load_run": "a",
+                                            **extra}), verbose=False)
+        train(tiny_cfg(tmp_path, "c", 3, **extra), verbose=False)
+        public = lambda row: {k: v for k, v in row.items()
+                              if not k.startswith(("time/", "perf/"))}
+        resumed = read_metrics(tmp_path, "b")
+        assert [r["iteration"] for r in resumed] == [3]
+        assert public(resumed[0]) == public(read_metrics(tmp_path, "c")[-1])
+
+
+class TestTrainBench:
+    @pytest.mark.parametrize("target", [-1e9, 1e9])
+    def test_prints_one_json_line(self, tmp_path, capsys, target):
+        from wheeledlab_torch.scripts import train_bench
+
+        result = train_bench.main([
+            "--device", "cpu", "--num-envs", "16", "--max-iterations", "2",
+            "--target-return", str(target), "--log-every", "1",
+            "--logs-dir", str(tmp_path), "--run-name", "tb",
+            "--no-checkpoints"])
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert json.loads(line) == result
+        reached = target < 0
+        assert result["reached"] is reached
+        # a target reached at the first log point stops the run there
+        assert result["iterations"] == (1 if reached else 2)
+        assert result["env_steps"] == result["iterations"] * 128 * 16
+        assert result["metric"] == "rss_drift_config_train_to_return_s"
+        assert result["device"] == "cpu"
+        assert np.isfinite(result["return"]) and result["value"] > 0
+        if not reached:
+            assert result["steady_ms_per_iteration"] > 0
+            assert result["train_s"] + result["startup_s"] == pytest.approx(
+                result["value"])
+        with open(tmp_path / "tb" / "result.json") as f:
+            assert json.load(f) == result
+
+
+class TestProfiling:
+    def test_phase_timer_matches_jax(self):
+        """The same phases give the same keys, counts and fractions."""
+        timers = (profiling.PhaseTimer(), jprof.PhaseTimer())
+        for timer in timers:
+            for name in ("rollout", "update", "rollout"):
+                with timer.phase(name):
+                    time.sleep(0.01)
+        mine, ref = (t.summary() for t in timers)
+        assert mine.keys() == ref.keys()
+        assert dict(timers[0].counts) == dict(timers[1].counts) \
+            == {"rollout": 2, "update": 1}
+        for timer in timers:
+            timer.reset()
+            assert timer.summary() == {}
+
+    def test_phase_waits_for_sync(self, monkeypatch):
+        """`sync=` stops the clock only once the card (stood in for here)
+        is done: a device or tensor through `torch.cuda.synchronize`, an
+        event through its `synchronize`."""
+        waited = []
+
+        def slow_sync(dev=None):
+            time.sleep(0.05)
+            waited.append(torch.device(dev))
+
+        class Event:
+            def synchronize(self):
+                time.sleep(0.05)
+                waited.append("event")
+
+        monkeypatch.setattr(torch.cuda, "synchronize", slow_sync)
+        timer = profiling.PhaseTimer()
+        with timer.phase("a", sync=torch.device("cuda", 0)):
+            pass
+        with timer.phase("b", sync=Event()):
+            pass
+        with timer.phase("c", sync=torch.zeros(1)):   # CPU: nothing pending
+            pass
+        assert waited == [torch.device("cuda", 0), "event"]
+        assert timer.totals["a"] >= 0.05 and timer.totals["b"] >= 0.05
+        assert timer.totals["c"] < 0.05
+
+    def test_trace_writes_chrome_trace(self, tmp_path):
+        with profiling.trace(str(tmp_path / "t")) as prof:
+            torch.ones(64).cumsum(0)
+        assert any("cumsum" in e.key for e in prof.key_averages())
+        with open(tmp_path / "t" / "trace.json") as f:
+            assert json.load(f)["traceEvents"]
+
+    def test_trace_warns_without_the_card(self, tmp_path, monkeypatch):
+        """A trace taken with a card that holds nothing of it warns: a
+        stand-in profiler records the host's ops alone."""
+        events = []
+
+        class HostOnly:
+            def __init__(self, activities):
+                assert torch.profiler.ProfilerActivity.CUDA in activities
+
+            start = stop = lambda self: None
+
+            def export_chrome_trace(self, path):
+                with open(path, "w") as f:
+                    json.dump({"traceEvents": []}, f)
+
+            def events(self):
+                return events
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.profiler, "profile", HostOnly)
+        with pytest.warns(UserWarning, match="recorded nothing on the card"):
+            with profiling.trace(str(tmp_path / "t")):
+                torch.ones(64).cumsum(0)
+        assert (tmp_path / "t" / "trace.json").exists()
+
+    def test_debug_nans(self):
+        """Both raise at the op that makes a NaN once turned on: JAX's
+        computations, the port's backward pass."""
+        x = torch.tensor([-1.0], requires_grad=True)
+        try:
+            jprof.debug_nans(True)
+            profiling.debug_nans(True)
+            with pytest.raises(FloatingPointError):
+                jax.jit(jnp.log)(-1.0).block_until_ready()
+            with pytest.raises(RuntimeError, match="nan"), \
+                    pytest.warns(UserWarning, match="SqrtBackward"):
+                torch.sqrt(x).sum().backward()
+        finally:
+            jprof.debug_nans(False)
+            profiling.debug_nans(False)
+        assert not torch.is_anomaly_enabled()
+        torch.sqrt(x).sum().backward()   # off again: NaN gradient, no raise
+        assert torch.isnan(x.grad).all()
+
+
+if __name__ == "__main__":
+    sys.exit(pytest.main([__file__, "-x", "-q"]))

@@ -112,16 +112,19 @@ def test_scripts_are_modules_of_the_port():
 
 
 def test_no_switch_forces_a_plain_version():
-    """The port reads three environment variables, none of which chooses
+    """The port reads these environment variables, none of which chooses
     between a kernel and its plain version: the in-kernel-RNG route (honoured
-    on both devices), the probe's width and the CUDA toolkit's place. A
-    wrapper takes its plain version only where `device.type == "cpu"`."""
+    on both devices), the probe's width, the CUDA toolkit's place and
+    torchrun's description of the job (a rank's card, the number of ranks
+    and of ranks a host). A wrapper takes its plain version only where
+    `device.type == "cpu"`."""
     read = set()
     for path in port_sources():
         with open(path) as f:
             read |= set(re.findall(r'environ(?:\.get\(|\[)\s*"(\w+)"',
                                    f.read()))
-    assert read == {"WHEELEDLAB_KERNEL_RNG", "PROBE_ENVS", "CUDA_HOME"}
+    assert read == {"WHEELEDLAB_KERNEL_RNG", "PROBE_ENVS", "CUDA_HOME",
+                    "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE"}
     wrappers = {"wheeledlab_torch/tasks/drift/fused.py": 2,
                 "wheeledlab_torch/ops/multi_step.py": 1,
                 "wheeledlab_torch/ops/kernel_rng.py": 1,

@@ -6,7 +6,10 @@ train_rl.py):
 
 Dotted overrides use the same grammar as the reference's Hydra CLI. Runs on
 CUDA unless `--device cpu` is given. `--headless` is accepted for
-command-line compatibility.
+command-line compatibility. Under torchrun every rank runs the same command
+on its shard of the env batch:
+
+    torchrun --nproc_per_node N -m wheeledlab_torch.cli.train -r POD_DRIFT_CONFIG
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="named run config (RSS_DRIFT_CONFIG, "
                         "F1TENTH_DRIFT_CONFIG, RSS_DRIFT_RNN_CONFIG, "
                         "RSS_ELEV_CONFIG, ELEV_GOAL_CONFIG, "
-                        "RSS_VISUAL_CONFIG)")
+                        "RSS_VISUAL_CONFIG, POD_DRIFT_CONFIG)")
     p.add_argument("--num-envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--max-iterations", type=int, default=None)
@@ -36,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "train.log.video_interval iterations (reference "
                         "LogConfig.video, common_cfg.py:19-29)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet: raises)")
+                   help="shard the env batch over the ranks of the "
+                        "torch.distributed job (train.distributed=on)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the run config's, cuda)")
     return p
@@ -58,14 +62,25 @@ def main(argv=None):
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
 
-    from ..rl.runner import train
-    from ..utils.config import RUN_CONFIGS, apply_overrides, parse_cli_overrides
+    from ..parallel import distributed
+    from ..utils.config import RUN_CONFIGS, parse_cli_overrides
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
 
     base = RUN_CONFIGS.get(args.run_config)
     overrides = parse_cli_overrides(extra)
 
     sweeps = list(_sweep_product(overrides)) if args.multirun else [overrides]
+    try:
+        _run_sweeps(args, base, sweeps)
+    finally:
+        distributed.shutdown()
+
+
+def _run_sweeps(args, base, sweeps):
+    """Train once per override dict of `sweeps`."""
+    from ..rl.runner import train
+    from ..utils.config import apply_overrides
+
     for i, once in enumerate(sweeps):
         # `env.*` routes into the task cfg via RunConfig.env_overrides
         # (applied by make_env, which raises KeyError on unknown fields);

@@ -189,6 +189,8 @@ class WheeledEnv:
         self._reward_names = [t.name for t in task.reward_terms]
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # this env's rank in a job of several (`tasks.make_env(shard=)`)
+        self.shard = 0
         self._weights_cache: Dict[Tuple[float, ...], torch.Tensor] = {}
         self._contact_atlas = task.contact_atlas or task.terrain_atlas
         if (task.fused_step is None and not task.terrain.is_flat

@@ -9,16 +9,25 @@ clipped-surrogate / clipped-value updates over one permutation shared across
 epochs, each with the adaptive-KL learning rate, a global grad-norm clip and
 Adam. Nothing in an iteration reads a value back to the host: the learning
 rate is a device tensor that the fused Adam step reads.
+
+In a job of several ranks (`world`, `parallel/`) each rank rolls out and
+shuffles its own env shard; the gradients and the KL of every minibatch,
+the advantage normalization's moments and the iteration's metrics are
+all-reduced, so every rank holds the same parameters, learning rate and
+metrics, as the reference's replicated state under GSPMD. A world of one
+rank issues no collective and keeps the one-process bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..envs.env import EnvState, WheeledEnv
+from ..parallel import distributed, mesh
+from ..parallel.mesh import World
 from ..utils.config import configclass
 from .networks import (
     DTYPES, ActorCritic, gaussian_entropy, gaussian_kl, gaussian_log_prob,
@@ -108,6 +117,37 @@ def finalize_info_acc(acc: Dict[str, torch.Tensor], num_steps: int,
     return out
 
 
+def global_moments(x: torch.Tensor, world_size: int):
+    """(mean, population std) of `x` over every rank's `x` (equal shapes):
+    the sum, then the squared deviations from the global mean, each
+    all-reduced, as GSPMD computes `jnp.mean` and `jnp.std` of a sharded
+    array."""
+    n = x.numel() * world_size
+    mean = distributed.all_reduce_sum_(x.sum()) / n
+    sq = distributed.all_reduce_sum_(((x - mean) ** 2).sum())
+    return mean, torch.sqrt(sq / n)
+
+
+def reduce_metrics(acc, num_dones, reward_mean, loss_metrics, nan,
+                   world_size: int):
+    """The iteration's metric inputs over every rank, in one sum all-reduce
+    and one max: counts and done-masked sums are summed (so episode/return
+    is the global sum over the global `num_dones`), per-rank means (rew/*,
+    metrics/*, the reward mean, the losses) averaged over the equal shards,
+    the NaN flag maxed. Returns them in the order given."""
+    names = list(acc)
+    flat = torch.cat([torch.stack([acc[k] for k in names]
+                                  + [num_dones, reward_mean]), loss_metrics])
+    distributed.all_reduce_sum_(flat)
+    is_mean = torch.tensor(
+        [k.startswith(("rew/", "metrics/")) for k in names]
+        + [False, True] + [True] * loss_metrics.numel(), device=flat.device)
+    flat = torch.where(is_mean, flat / world_size, flat)
+    k = len(names)
+    return (dict(zip(names, flat[:k])), flat[k], flat[k + 1], flat[k + 2:],
+            distributed.all_reduce_max_(nan))
+
+
 def traj_captures(env_state: EnvState) -> Dict[str, torch.Tensor]:
     """One step's trajectory capture of the first 8 envs, for the training
     videos (the reference's `traj_captures`): position, yaw, orientation
@@ -136,9 +176,14 @@ class PPO:
 
     state_cls = TrainState
 
-    def __init__(self, env: WheeledEnv, cfg: PPOCfg, seed: int = 0):
+    def __init__(self, env: WheeledEnv, cfg: PPOCfg, seed: int = 0,
+                 world: Optional[World] = None,
+                 shard_seed: Optional[int] = None):
         self.env, self.cfg = env, cfg
+        # None unless there is another rank to reduce with
+        self.world = world if world is not None and world.size > 1 else None
         dev = env.device
+        # the same initial parameters on every rank
         self.model = self.build_model(
             torch.Generator().manual_seed(seed + 1)).to(dev)
         # fused Adam takes the learning rate as a device tensor, so the
@@ -146,8 +191,10 @@ class PPO:
         self.optimizer = torch.optim.Adam(
             self.model.parameters(),
             lr=torch.tensor(cfg.learning_rate, device=dev), fused=True)
+        if shard_seed is None:
+            shard_seed = mesh.shard_seed(seed, world.rank if world else 0)
         self.generator = torch.Generator(device=dev)
-        self.generator.manual_seed(seed + 2)
+        self.generator.manual_seed(shard_seed + 2)
 
     def build_model(self, generator: torch.Generator) -> ActorCritic:
         cfg, env = self.cfg, self.env
@@ -252,8 +299,11 @@ class PPO:
             advantages[t] = adv_next
             v_next = value[t]
         returns = advantages + value
-        norm_adv = ((advantages - advantages.mean())
-                    / (advantages.std(correction=0) + 1e-8))
+        if self.world is None:
+            mean, std = advantages.mean(), advantages.std(correction=0)
+        else:
+            mean, std = global_moments(advantages, self.world.size)
+        norm_adv = (advantages - mean) / (std + 1e-8)
         return advantages, returns, norm_adv
 
     # -------------------------------------------------------------- update
@@ -299,6 +349,8 @@ class PPO:
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         kl = kl.detach()
+        if self.world is not None:
+            kl = self.all_reduce_grads(kl)
 
         if cfg.schedule == "adaptive":
             # rsl_rl adaptive-KL LR, set before this minibatch's Adam step
@@ -318,13 +370,27 @@ class PPO:
         self.optimizer.step()
         return torch.stack([total, surr, vloss, ent, kl]).detach()
 
+    def all_reduce_grads(self, kl: torch.Tensor) -> torch.Tensor:
+        """Replace every parameter's gradient by its mean over the ranks, in
+        one collective on one flat buffer that also carries the minibatch's
+        `kl`; returns the mean `kl`. Runs before the adaptive LR and the
+        clip, which then see the global KL and the global norm."""
+        grads = [p.grad for p in self.model.parameters()]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [kl.reshape(1)])
+        distributed.all_reduce_mean_(flat)
+        for g, part in zip(grads, torch.split(flat[:-1],
+                                              [g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        return flat[-1]
+
     def update_epochs(self, dataset) -> torch.Tensor:
         """dataset: tuple of time-major [T, B, ...] tensors (obs, action,
         log_prob, value, returns, norm_adv, mean, std). One permutation
         shared across epochs (rsl_rl's mini_batch_generator); the float32
         columns are packed into one array so the shuffle is one gather
-        (two when the obs are stored in bfloat16). Returns the mean of the
-        minibatch metrics."""
+        (two when the obs are stored in bfloat16). Each rank of a job
+        shuffles its own shard (reference ppo.py:365-376). Returns the mean
+        of the minibatch metrics."""
         cfg = self.cfg
         nb = cfg.num_mini_batches
         t_len, b = dataset[0].shape[:2]
@@ -360,6 +426,13 @@ class PPO:
         rollout's `traj/*` channels when it captured them."""
         # episode stats: mean over transitions where an episode finished
         num_dones = traj["done"].sum()
+        reward_mean = traj["reward"].mean()
+        nan = 1.0 - (torch.isfinite(traj["action"]).all()
+                     & torch.isfinite(loss_metrics).all()).to(torch.float32)
+        if self.world is not None:
+            acc, num_dones, reward_mean, loss_metrics, nan = reduce_metrics(
+                acc, num_dones, reward_mean, loss_metrics, nan,
+                self.world.size)
         n_done = torch.clamp(num_dones, min=1.0)
         metrics = {
             "loss/total": loss_metrics[0],
@@ -369,12 +442,10 @@ class PPO:
             "loss/kl": loss_metrics[4],
             "lr": self.lr.detach().clone(),
             "episode/num_dones": num_dones,
-            "rollout/reward_mean": traj["reward"].mean(),
+            "rollout/reward_mean": reward_mean,
             # NaN guard (parity: modified_rsl_rl_runner.py:74-75); the
             # runner raises when this fires
-            "nan/detected": 1.0 - (torch.isfinite(traj["action"]).all()
-                                   & torch.isfinite(loss_metrics).all()
-                                   ).to(torch.float32),
+            "nan/detected": nan,
         }
         metrics.update(finalize_info_acc(acc, self.cfg.num_steps_per_env,
                                          n_done))
@@ -412,16 +483,24 @@ class PPO:
         self.generator.set_state(sd["generator"])
 
 
-def make_learner(env: WheeledEnv, cfg: PPOCfg, seed: int = 0) -> PPO:
+def make_learner(env: WheeledEnv, cfg: PPOCfg, seed: int = 0,
+                 world: Optional[World] = None,
+                 shard_seed: Optional[int] = None) -> PPO:
     """Policy-class dispatch (rsl_rl resolves RslRlPpoActorCriticCfg
     .class_name to ActorCritic or ActorCriticRecurrent; the runner is
-    agnostic to which)."""
+    agnostic to which).
+
+    `world` (the JAX learner's `mesh=`) is this rank's place in a job of
+    several ranks, each holding its own env shard in `env`. The policy's
+    initial parameters come from `seed` on every rank; the learner's
+    generator (action noise, shuffles) from `shard_seed`, which defaults to
+    `parallel.shard_seed(seed, world.rank)`."""
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if cfg.policy_class == "ActorCritic":
-        return PPO(env, cfg, seed)
+        return PPO(env, cfg, seed, world, shard_seed)
     if cfg.policy_class == "ActorCriticRecurrent":
         from .recurrent import RecurrentPPO
 
-        return RecurrentPPO(env, cfg, seed)
+        return RecurrentPPO(env, cfg, seed, world, shard_seed)
     raise ValueError(f"unknown policy_class {cfg.policy_class!r}")

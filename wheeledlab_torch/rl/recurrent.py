@@ -242,7 +242,9 @@ class RecurrentPPO(PPO):
         log_prob, value, returns, norm_adv, mean, std). One env-axis
         permutation from the learner's generator, shared across epochs;
         minibatch i holds the envs `perm[i * mb:(i + 1) * mb]`, time-major,
-        with their window-start hidden."""
+        with their window-start hidden. Each rank of a job permutes its own
+        envs (reference recurrent.py:335-351); `minibatch_update` reduces
+        the gradients."""
         cfg = self.cfg
         nb = cfg.num_mini_batches
         n_envs = dataset[0].shape[1]

@@ -1,7 +1,7 @@
 """Named run configs — the port of `wheeledlab_tpu/rl/run_cfgs.py` for the
 drift, elevation and visual tasks (reference configs/runs/rss_cfgs.py:8-53,
-runs/f1tenth_cfgs.py:7-21) and the recurrent drift variant.
-POD_DRIFT_CONFIG is registered when multi-process training is ported."""
+runs/f1tenth_cfgs.py:7-21), the recurrent drift variant and the
+multi-process POD_DRIFT_CONFIG."""
 
 from __future__ import annotations
 
@@ -67,7 +67,19 @@ RSS_DRIFT_RNN_CONFIG = RunConfig(
     agent=DRIFT_PPO.replace(policy_class="ActorCriticRecurrent"),
 )
 
+# Data-parallel drift at 65,536 envs, split over the ranks of a
+# torch.distributed job; `distributed="on"` makes one command launch it
+# (reference parity: train_rl.py:33-116 runs any named config):
+#     python -m wheeledlab_torch.cli.train -r POD_DRIFT_CONFIG
+#     torchrun --nproc_per_node N -m wheeledlab_torch.cli.train -r POD_DRIFT_CONFIG
+POD_DRIFT_CONFIG = RunConfig(
+    task_name="MushrDriftRL-v0",
+    num_envs=65536,
+    train=TrainCfg(num_iterations=5000, distributed="on", log=LogCfg()),
+    agent=DRIFT_PPO,
+)
+
 for _name in ("RSS_DRIFT_CONFIG", "RSS_ELEV_CONFIG", "RSS_VISUAL_CONFIG",
               "ELEV_GOAL_CONFIG", "F1TENTH_DRIFT_CONFIG",
-              "RSS_DRIFT_RNN_CONFIG"):
+              "RSS_DRIFT_RNN_CONFIG", "POD_DRIFT_CONFIG"):
     RUN_CONFIGS.register(_name, globals()[_name])

@@ -58,10 +58,11 @@ def resolve_task(task_name: str) -> Dict[str, Any]:
 
 def make_env(task_name: str, num_envs: Optional[int] = None,
              overrides: Optional[Dict[str, Any]] = None, play: bool = False,
-             device="cuda", seed: int = 0):
+             device="cuda", seed: int = 0, shard: int = 0):
     """Build a task's env (its play variant if `play`) on `device` (CUDA
     unless the caller asks for the CPU); its random draws come from a
-    generator seeded with `seed`."""
+    generator seeded with `seed`. `shard` is the env's rank in a job of
+    several ranks, which offsets its in-kernel random stream."""
     entry = resolve_task(task_name)
     cfg = entry["play_cfg"] if play else entry["cfg"]
     if num_envs is not None:
@@ -70,4 +71,5 @@ def make_env(task_name: str, num_envs: Optional[int] = None,
         cfg = apply_overrides(cfg, dict(overrides))
     env = entry["make"](cfg, device=device, seed=seed)
     env.task_cfg = cfg  # the resolved task-level cfg, for introspection
+    env.shard = shard
     return env

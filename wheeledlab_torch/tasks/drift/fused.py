@@ -43,6 +43,7 @@ import torch
 
 from ...ops.checks import check_rows
 from ...ops.kernel_rng import check_seed, philox_blocks
+from ...parallel.mesh import int32_shard_offset
 from ...utils.math import div
 from ...sim.soa import (
     NUM_PARAM, NUM_STATE, asin_approx, atan2_approx, substep_soa,
@@ -587,6 +588,13 @@ def make_fused_drift_step(task_cfg, env_cfg, ref_poses):
             # generator state resumes a run exactly
             seed = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32,
                                  generator=env.generator, device=dev)
+            # the env of rank r of a job of several ranks offsets the seed
+            # by r * 0x3779B1 (int32 wrap), so no two ranks share a Philox
+            # stream even with equal generators (reference
+            # fused.py:600-604). The K1 route draws from the rank's own
+            # generator and needs nothing.
+            if env.shard:
+                seed = seed + int32_shard_offset(env.shard)
             res = fused_drift_step_krng(
                 state.reward_weights, poses_on[dev], state.vehicle_mem,
                 state.packed_params, action.T.contiguous(), seed,
