@@ -45,6 +45,19 @@ printing its final line:
              K2 at the visual task's shape (512 and 7 envs, decimation 20,
              dt 0.01, MuSHR with the task's DR on ground friction 2.0), bit
              for bit.
+   per-vehicle — `sim/dynamics.py::step` (the physics of
+             `use_kernels="off"` and of a heightfield without an atlas)
+             against K2 at 1024 and 16384 envs, both robots, decimation 4,
+             and against K3 at 1024 envs, decimation 10, p = 12, through
+             each env's atlas patch and on the full grid, every env within
+             FLOAT_TOL; the drift env at use_kernels="off" against its K1
+             route, 1024 envs, 8 steps from one state (the reference's
+             fused-against-XLA tolerances; 8 K1 launches and no other);
+             16 steps of elevation without its atlases (finite, no kernel
+             launched); the native host library, which must load, against
+             numpy map generation at the visual map's size; and
+             `scripts.physics_bench` at 16384 envs, rollout 32, in a
+             subprocess (four rows; only the kernel route launches).
    visual  — `action_to_targets` on the card equal to its CPU result bit
              for bit (rwd, 4wd, ackermann; 4096 actions); the renderers
              (`render_fast` cropped, `render`, `render_rgb`) on the card
@@ -605,6 +618,220 @@ def physics_phase(device):
     if failures:
         raise AssertionError("envs beyond tolerance: " + "; ".join(failures))
     return errs, cases
+
+
+PHYSICS_BENCH_ARGS = ("--num-envs", "16384", "--rollout", "32",
+                      "--min-wall", "0.5")
+
+
+def vehicle_params(task, gen, b, packed):
+    """The batched VehicleParams that `task.init_params` draws from `gen`
+    (a generator seeded as the one that drew `packed`), on `packed`'s
+    device; raises unless they pack to `packed` bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from wheeledlab_torch.sim.soa import pack_params
+    from wheeledlab_torch.sim.types import VehicleParams
+
+    vp = task.init_params(gen, b, gen.device)
+    vp = VehicleParams(**{f.name: getattr(vp, f.name).to(packed.device)
+                          for f in dataclasses.fields(vp)})
+    if not torch.equal(pack_params(vp, task.terrain.friction), packed):
+        raise AssertionError("the redrawn params differ from the inputs'")
+    return vp
+
+
+def per_vehicle_phase(device, phys_cases):
+    """The per-vehicle physics (`sim/dynamics.py`, `use_kernels="off"`) on
+    the card: against K2 (1024 and 16384 envs, both robots, decimation 4)
+    and K3 (1024 envs, decimation 10, p = 12; through each env's atlas
+    patch and on the full grid), every env within FLOAT_TOL; the drift env
+    at use_kernels="off" against its K1 route (1024 envs, 8 steps from one
+    state, the reference's fused-against-XLA tolerances); 16 steps of the
+    elevation env without its atlases (finite, no kernel launched); the
+    native host library (must load) against numpy map generation at the
+    visual map's size; and `scripts.physics_bench` at 16384 envs in a
+    subprocess. Returns the numbers for the kernels line."""
+    import torch
+
+    from wheeledlab_torch import native
+    from wheeledlab_torch.envs.env import WheeledEnv
+    from wheeledlab_torch.ops.physics_step import physics_step
+    from wheeledlab_torch.ops.physics_step_hf import physics_step_hf
+    from wheeledlab_torch.sim import dynamics
+    from wheeledlab_torch.sim.soa import pack_params, pack_state, unpack_state
+    from wheeledlab_torch.tasks import make_env
+    from wheeledlab_torch.tasks.drift.task import DriftTaskCfg, make_drift_task
+    from wheeledlab_torch.tasks.elevation.task import (
+        ElevationTaskCfg, make_elevation_env, make_elevation_task,
+    )
+    from wheeledlab_torch.tasks.visual.map_gen import (
+        generate_traversability_map,
+    )
+    from wheeledlab_torch.tasks.visual.task import VisualTaskCfg
+
+    phase("per-vehicle physics")
+    t_phase = time.perf_counter()
+    res, failures = {}, []
+
+    def agree(name, got_rows, want_rows):
+        err, bad = compare_rows(got_rows, want_rows)
+        differ = envs_not_bit_equal([got_rows], [want_rows])
+        print(f"{name}: max_abs_err {err:.3e}, envs beyond tolerance {bad}, "
+              f"envs not bit-equal {differ}", flush=True)
+        if bad:
+            failures.append(f"{name}: {bad} envs beyond tolerance")
+        return err
+
+    # against K2: the same states, params and joint targets
+    res["vs_k2_max_abs_err"] = 0.0
+    for robot in ("mushr", "f1tenth"):
+        for b in (1024, 16384):
+            x, k = phys_cases[("K2", robot, b, 4)]
+            task = make_drift_task(DriftTaskCfg(num_envs=b, robot=robot))
+            vp = vehicle_params(
+                task, torch.Generator().manual_seed(7 * b + len(robot)), b,
+                x["params"])
+            got, aux = dynamics.step(
+                unpack_state(x["state"]), vp, task.terrain, x["steer_t"].T,
+                x["wheel_t"].T, k["dt"], k["decimation"])
+            want = physics_step(**x, **k)
+            torch.cuda.synchronize()
+            err = agree(f"per-vehicle vs K2 {robot} B={b} decimation 4",
+                        pack_state(got), want)
+            res["vs_k2_max_abs_err"] = max(res["vs_k2_max_abs_err"], err)
+
+    # against K3: the elevation task's terrain, its contact atlas (p = 12)
+    x, k = phys_cases[("K3", 1024)]
+    task = make_elevation_task(ElevationTaskCfg(num_envs=1024), device)
+    patch, org = task.contact_atlas.extract_rows(x["state"][0], x["state"][1])
+    if not (torch.equal(patch, x["patch"]) and torch.equal(org, x["org"])):
+        raise AssertionError("K3 inputs: another terrain")
+    vp = vehicle_params(
+        task, torch.Generator(device=device).manual_seed(1024), 1024,
+        x["params"])
+    want = physics_step_hf(**x, **k)
+    for contact, atlas in (("atlas patch", task.contact_atlas),
+                           ("full grid", None)):
+        got, aux = dynamics.step(
+            unpack_state(x["state"]), vp, task.terrain, x["steer_t"].T,
+            x["wheel_t"].T, k["dt"], k["decimation"], atlas)
+        torch.cuda.synchronize()
+        touching = int(aux.contact.any(1).sum())
+        res[f"vs_k3_{contact.split()[0]}_max_abs_err"] = agree(
+            f"per-vehicle vs K3 B=1024 decimation {k['decimation']} "
+            f"p={k['p']}, {contact} ({touching} envs end with a wheel in "
+            f"contact)", pack_state(got), want)
+
+    # the drift env: use_kernels="off" against the K1 route
+    kw = dict(events_enabled=False, enable_corruption=False)
+    envs = {route: make_env("MushrDriftRL-v0", num_envs=1024, device=device,
+                            overrides=kw, use_kernels=route)
+            for route in ("auto", "off")}
+    (sk, _), (so, _) = envs["auto"].reset(), envs["off"].reset()
+    if not (torch.equal(sk.vehicle_mem, pack_state(so.vehicle_mem))
+            and torch.equal(sk.packed_params, pack_params(
+                so.params, envs["off"].task.terrain.friction))):
+        raise AssertionError("the two routes reset to different states")
+    alive = torch.ones(1024, dtype=torch.bool, device=device)
+    errs = dict(pos=0.0, lin_vel=0.0, reward=0.0, obs=0.0)
+    tols = dict(pos=1e-3, lin_vel=5e-3, reward=3e-2, obs=1e-2)
+    reset_launches()
+    for t in range(8):
+        a = torch.stack([torch.full((1024,), 0.6, device=device),
+                         torch.full((1024,), 0.4 * math.sin(0.7 * t),
+                                    device=device)], -1)
+        sk, ok = envs["auto"].step(sk, a)
+        so, oo = envs["off"].step(so, a)
+        if not torch.equal(ok.done[alive], oo.done[alive]):
+            failures.append(f"off route vs K1: done differs at step {t}")
+        alive &= ~ok.done
+        for name, g, w in (("pos", so.vehicle.pos, sk.vehicle.pos),
+                           ("lin_vel", so.vehicle.lin_vel,
+                            sk.vehicle.lin_vel),
+                           ("reward", oo.reward, ok.reward),
+                           ("obs", oo.obs, ok.obs)):
+            e = (g - w)[alive].abs().max().item()
+            errs[name] = max(errs[name], e)
+            if not e <= tols[name]:
+                failures.append(f"off route vs K1: {name} {e:.3e} at step "
+                                f"{t}")
+    launches = read_launches()
+    print(f"drift env, use_kernels=off vs K1, 1024 envs, 8 steps: max |d| "
+          f"{errs} (tolerances {tols}); {int(alive.sum())} envs never "
+          f"reset; launches {launches}", flush=True)
+    if launches != {**NO_LAUNCHES, "K1": 8}:
+        failures.append(f"off route vs K1: launches {launches}")
+    if int(alive.sum()) < 512:
+        failures.append("off route vs K1: too many resets")
+    res["off_vs_k1_max_abs_d"] = errs
+
+    # the elevation env without its atlases: per-vehicle physics on the grid
+    env = make_elevation_env(ElevationTaskCfg(num_envs=1024), device=device)
+    env = WheeledEnv(env.task._replace(terrain_atlas=None, contact_atlas=None),
+                     device=device)
+    state, obs = env.reset()
+    gen = torch.Generator(device=device).manual_seed(5)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        state, out = env.step(state, torch.rand((1024, 2), generator=gen,
+                                                device=device) * 2 - 1)
+    finite = bool(torch.isfinite(out.obs).all() and torch.isfinite(
+        out.reward).all() and torch.isfinite(state.vehicle.pos).all())
+    step_ms = 1000 * (time.perf_counter() - t0) / 16
+    launches = read_launches()
+    print(f"elevation without atlases, 1024 envs, 16 steps: finite "
+          f"{finite}, {step_ms:.2f} ms a step, launches {launches}",
+          flush=True)
+    if not (env.per_vehicle and finite and launches == NO_LAUNCHES):
+        failures.append("atlas-free elevation run")
+    res["atlas_free_elevation_step_ms"] = step_ms
+
+    # the native host library: it must load
+    if not native.available():
+        raise AssertionError("the native host library did not load")
+    vcfg = VisualTaskCfg()
+    map_kw = dict(map_size=(vcfg.map_rows, vcfg.map_cols),
+                  env_size=(vcfg.env_rows, vcfg.env_cols),
+                  sub_group_size=(vcfg.group_rows, vcfg.group_cols),
+                  num_walkers=vcfg.num_walkers)
+    map_ms = {}
+    for backend in ("native", "numpy"):
+        t0 = time.perf_counter()
+        grid = generate_traversability_map(vcfg.seed, backend=backend,
+                                           **map_kw)
+        map_ms[backend] = 1000 * (time.perf_counter() - t0)
+        if grid.shape != map_kw["map_size"] or not 0.02 < grid.mean() < 0.9:
+            failures.append(f"{backend} map {grid.shape} {grid.mean()}")
+    print(f"visual map {map_kw['map_size']}: native {map_ms['native']:.2f} "
+          f"ms, numpy {map_ms['numpy']:.2f} ms (host)", flush=True)
+    res["map_gen_ms"] = map_ms
+
+    # physics_bench at 16384 envs, in a process of its own
+    (out,) = run_group([[sys.executable, "-m",
+                         "wheeledlab_torch.scripts.physics_bench",
+                         *PHYSICS_BENCH_ARGS]])
+    rows = [json.loads(line) for line in out.strip().splitlines()
+            if line.startswith("{")]
+    if [r["metric"] for r in rows] != ["raw_physics", "physics_soa",
+                                       "env_step_off", "env_step_kernel"]:
+        raise AssertionError(f"physics_bench printed:\n{out[-4000:]}")
+    for r in rows:
+        print(json.dumps(r), flush=True)
+        # only the kernel route may launch a kernel, and it must
+        on_k1 = r["metric"] == "env_step_kernel"
+        if not r["value"] > 0 or (r["kernel_launches"] > 0) != on_k1:
+            failures.append(f"physics_bench row {r}")
+    res["physics_bench"] = {r["metric"]: r["value"] for r in rows}
+    print(f"per-vehicle phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
 
 
 def envs_not_bit_equal(got, want):
@@ -2154,6 +2381,7 @@ def main():
     registers = build_phase()
     max_err, cases = kernel_phase(device)
     phys_err, phys_cases = physics_phase(device)
+    per_vehicle = per_vehicle_phase(device, phys_cases)
     rng_err, kept = rng_kernel_phase(device, cases)
     vis_err, vis_cases = visual_kernel_phase(device)
     action_map_phase()
@@ -2207,6 +2435,10 @@ def main():
                     standing_start_graph_ms=standing[1024]["K1"]["graph_ms"],
                     standing_start_graph_ms_16384=standing[16384]["K1"][
                         "graph_ms"],
+                    off_route_vs_k1_max_abs_d=per_vehicle[
+                        "off_vs_k1_max_abs_d"],
+                    physics_bench_env_steps_per_s=per_vehicle[
+                        "physics_bench"],
                     registers_per_thread=registers_per_thread(
                         registers, "fused_drift")),
         kernel_line("physics_step", "wheeledlab_torch/csrc/physics_step.cu",
@@ -2226,7 +2458,8 @@ def main():
                     **{f"visual_{key}": breakdown[key] for key in (
                         "step_device_ms", "step_wall_ms", "step_launches",
                         "observe_device_ms", "step_busy_share")},
-                    visual_render_pixels_differ=render_frac),
+                    visual_render_pixels_differ=render_frac,
+                    per_vehicle_max_abs_err=per_vehicle["vs_k2_max_abs_err"]),
         kernel_line("physics_step_hf",
                     "wheeledlab_torch/csrc/physics_step_hf.cu", K3_REPLACES,
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
@@ -2234,6 +2467,12 @@ def main():
                     train_iteration_ms=elev_ms,
                     bf16_train_iteration_ms=bf16_ms["bfloat16"],
                     f32_turns_train_iteration_ms=bf16_ms["float32"],
+                    per_vehicle_patch_max_abs_err=per_vehicle[
+                        "vs_k3_atlas_max_abs_err"],
+                    per_vehicle_grid_max_abs_err=per_vehicle[
+                        "vs_k3_full_max_abs_err"],
+                    atlas_free_elevation_step_ms=per_vehicle[
+                        "atlas_free_elevation_step_ms"],
                     standing_start_graph_ms=standing[1024]["K3"]["graph_ms"],
                     standing_start_graph_ms_16384=standing[16384]["K3"][
                         "graph_ms"],

@@ -17,6 +17,7 @@ from wheeledlab_tpu import native as jnative
 from wheeledlab_tpu.cli.export import flatten_actor_critic as j_flatten
 from wheeledlab_tpu.render import topdown as jtopdown
 from wheeledlab_tpu.rl.networks import ActorCritic as JActorCritic
+from wheeledlab_torch import native as tnative
 from wheeledlab_torch.cli import export, play
 from wheeledlab_torch.convert import actor_critic_from_jax
 from wheeledlab_torch.envs.wrappers import ClipActionEnv, GymVecEnv
@@ -161,9 +162,11 @@ class TestExport:
 
 @pytest.fixture
 def numpy_rasterizer(monkeypatch):
-    """The JAX package's numpy rasterizer: its optional native C++ one
-    (not ported) is switched off."""
+    """Both packages' numpy rasterizers: their native C++ ones (held
+    against each other in test_torch_native.py) are switched off."""
     monkeypatch.setattr(jnative, "rasterize_trajectories",
+                        lambda *a, **k: False)
+    monkeypatch.setattr(tnative, "rasterize_trajectories",
                         lambda *a, **k: False)
 
 

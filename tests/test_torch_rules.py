@@ -89,11 +89,12 @@ def test_default_device_is_cuda_without_fallback():
             train(cfg)
     from wheeledlab_torch.cli import export, play
     from wheeledlab_torch.scripts import (
-        check_kernel_rng, limiter_probe, mppi_demo,
+        check_kernel_rng, limiter_probe, mppi_demo, physics_bench,
     )
 
     for main, argv in ((check_kernel_rng.main, []), (limiter_probe.main, []),
                        (mppi_demo.main, ["--steps", "1"]),
+                       (physics_bench.main, ["--num-envs", "8"]),
                        (play.main, ["--run", "none"]),
                        (export.main, ["--run", "none"])):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -108,7 +109,9 @@ def test_scripts_are_modules_of_the_port():
             "wheeledlab_torch.cli.export", "wheeledlab_torch.envs.wrappers",
             "wheeledlab_torch.render.topdown",
             "wheeledlab_torch.ops.kernel_rng",
-            "wheeledlab_torch.ops.multi_step"} <= mods
+            "wheeledlab_torch.ops.multi_step",
+            "wheeledlab_torch.sim.dynamics", "wheeledlab_torch.native",
+            "wheeledlab_torch.scripts.physics_bench"} <= mods
 
 
 def test_no_switch_forces_a_plain_version():

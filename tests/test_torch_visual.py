@@ -153,10 +153,6 @@ class TestMap:
             assert jt.colormap.grid_rgb is None
         np.testing.assert_array_equal(tt.render_grid[0], jt.render_grid[0])
 
-    def test_native_backend_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="native"):
-            tmap.generate_traversability_map(0, backend="native")
-
 
 # ---------------------------------------------------------------------------
 # camera

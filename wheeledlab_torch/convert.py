@@ -112,7 +112,9 @@ def env_state_from_jax(state_np, ground_friction: float = 1.0,
     PRNG key has no counterpart: the port's env draws from its generator.
     `ground_friction` is folded into the packed params when the JAX state
     carries none (its generic path): the task's ground friction, 1.0 for
-    drift and elevation, 2.0 for the visual task."""
+    drift and elevation, 2.0 for the visual task. The JAX state's batched
+    `params` become the port's `EnvState.params`, which the per-vehicle
+    route (`EnvCfg.use_kernels="off"`) steps with."""
     vm = _get(state_np, "vehicle_mem")
     if isinstance(vm, np.ndarray):
         vehicle_mem = _t(vm, device=device)
@@ -120,12 +122,12 @@ def env_state_from_jax(state_np, ground_friction: float = 1.0,
         vehicle_mem = pack_state(VehicleState(**{
             f.name: _t(_get(vm, f.name), device=device)
             for f in dataclasses.fields(VehicleState)}))
+    jp = _get(state_np, "params")
+    params = VehicleParams(**{f.name: _t(_get(jp, f.name), device=device)
+                              for f in dataclasses.fields(VehicleParams)})
     packed = _get(state_np, "packed_params")
     if packed is None:
-        jp = _get(state_np, "params")
-        packed_params = pack_params(VehicleParams(**{
-            f.name: _t(_get(jp, f.name), device=device)
-            for f in dataclasses.fields(VehicleParams)}), ground_friction)
+        packed_params = pack_params(params, ground_friction)
     else:
         packed_params = _t(packed, device=device)
     i32 = lambda name: _t(_get(state_np, name), torch.int32, device)
@@ -142,6 +144,7 @@ def env_state_from_jax(state_np, ground_friction: float = 1.0,
         push_timers=i32("push_timers"),
         ep_return=f32("ep_return"),
         ep_len=i32("ep_len"),
+        params=params,
     )
 
 

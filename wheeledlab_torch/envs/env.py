@@ -1,14 +1,19 @@
 """The env runtime — the port of `wheeledlab_tpu/envs/env.py`.
 
-`WheeledEnv.reset` builds the packed (rows, B) carry. `WheeledEnv.step`
-runs the task's fused step where it has one (drift training: one kernel per
-control step on CUDA), and otherwise the generic manager step (reference
-env.py:283-441): action map -> physics through kernel K2 (flat ground) or
-K3 (heightfield) -> push events -> timed command resample -> terminations
--> weighted rewards -> episode stats -> masked auto-reset -> curriculum ->
-post-reset observations. Manager ordering mirrors the reference: rewards and
-terminations on the post-physics state before reset, observations after
-reset, reward terms scaled by `weight * step_dt`. Every random draw comes
+`WheeledEnv.reset` builds the vehicle carry: packed (rows, B) on the
+kernel routes, a per-vehicle `VehicleState` on the per-vehicle route.
+`WheeledEnv.step` runs the task's fused step where it has one (drift
+training: one kernel per control step on CUDA), and otherwise the generic
+manager step (reference env.py:283-441): action map -> physics -> push
+events -> timed command resample -> terminations -> weighted rewards ->
+episode stats -> masked auto-reset -> curriculum -> post-reset
+observations. The physics is kernel K2 (flat ground) or K3 (heightfield),
+or `sim/dynamics.py::step` in plain PyTorch with
+`EnvCfg.use_kernels="off"` and for a heightfield task without a patch atlas
+(the reference's `use_pallas` routes, env.py:226-241). Manager ordering
+mirrors the reference: rewards and terminations on the post-physics state
+before reset, observations after reset, reward terms scaled by
+`weight * step_dt`. Every random draw comes
 from the env's generator, and a step reads nothing back from the device:
 the global step counter is a host int.
 """
@@ -16,13 +21,14 @@ the global step counter is a host int.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops.physics_step import physics_step
 from ..ops.physics_step_hf import physics_step_hf
+from ..sim import dynamics
 from ..sim.actions import ActionMapCfg, action_to_targets
 from ..sim.soa import pack_params, pack_state, unpack_state
 from ..sim.terrain import Heightfield
@@ -44,6 +50,9 @@ class EnvCfg:
     action: ActionMapCfg = ActionMapCfg()
     enable_corruption: bool = True  # observation noise on/off (play: off)
     events_enabled: bool = True     # DR + pushes on/off (play variants)
+    use_kernels: str = "auto"       # "auto" | "on" | "off" (the reference's
+    # use_pallas): "auto" and "on" run the task's fused step (K1/K4) and
+    # the K2/K3 physics; "off" the generic step on sim/dynamics.py
 
     @property
     def step_dt(self) -> float:
@@ -56,12 +65,12 @@ class EnvCfg:
 
 class StepCtx(NamedTuple):
     """Everything a term function may read — the counterpart of the `env`
-    handle the reference passes to its mdp term fns. The physics kernels
-    return no contact data, so the reference's `aux` (None on its kernel
-    paths too) has no field here."""
+    handle the reference passes to its mdp term fns."""
 
     vehicle: VehicleState          # batched [B]
-    params: torch.Tensor           # (NUM_PARAM, B) packed params
+    params: object                 # (NUM_PARAM, B) packed params; the
+                                   # batched VehicleParams on the
+                                   # per-vehicle route
     terrain: Heightfield
     body_lin_vel: torch.Tensor     # [B, 3] base_lin_vel (body frame)
     body_ang_vel: torch.Tensor     # [B, 3] base_ang_vel (body frame)
@@ -73,13 +82,15 @@ class StepCtx(NamedTuple):
     terminated: Optional[torch.Tensor] = None  # [B] non-timeout dones
     time_out: Optional[torch.Tensor] = None    # [B]
     term_flags: Optional[Dict[str, torch.Tensor]] = None
+    aux: Optional[dynamics.ContactAux] = None
+    # ^ the last substep's contact data on the per-vehicle route; None on
+    # the kernel routes, whose kernels return none (as in the reference)
 
 
 class RewardTerm(NamedTuple):
     name: str
     weight: float                  # initial weight (curriculum may change it)
-    fn: Optional[Callable[[StepCtx], torch.Tensor]] = None
-    # ^ None where a fused step computes the term itself
+    fn: Callable[[StepCtx], torch.Tensor]
 
 
 class CurriculumTerm(NamedTuple):
@@ -146,9 +157,11 @@ class TaskModel(NamedTuple):
 
 @dataclasses.dataclass
 class EnvState:
-    vehicle_mem: torch.Tensor      # (NUM_STATE, B) packed vehicle rows
-    packed_params: torch.Tensor    # (NUM_PARAM, B) DR'd params, packed once
-                                   # at reset (startup DR only)
+    vehicle_mem: Union[torch.Tensor, VehicleState]
+    # ^ the vehicle carry: (NUM_STATE, B) packed rows on the kernel routes,
+    # a batched VehicleState on the per-vehicle route
+    packed_params: Optional[torch.Tensor]  # (NUM_PARAM, B) DR'd params,
+    # packed once at reset (startup DR only); None on the per-vehicle route
     step_count: torch.Tensor       # [B] int32
     common_step: int               # global step counter, kept on the host
     reward_weights: torch.Tensor   # [n_terms] f32 — curriculum state
@@ -158,11 +171,33 @@ class EnvState:
     push_timers: torch.Tensor      # [n_push, B] int32
     ep_return: torch.Tensor        # [B]
     ep_len: torch.Tensor           # [B] int32
+    params: Optional[VehicleParams] = None  # batched DR'd params of the
+    # per-vehicle route
 
     @property
     def vehicle(self) -> VehicleState:
-        """AoS view of the packed vehicle rows."""
+        """AoS view of the vehicle state, whatever the carry."""
+        if isinstance(self.vehicle_mem, VehicleState):
+            return self.vehicle_mem
         return unpack_state(self.vehicle_mem)
+
+    def to_dict(self) -> dict:
+        """The fields as tensors and dicts of tensors, which
+        `torch.load(..., weights_only=True)` restores (`from_dict`)."""
+        tree = lambda x: ({f.name: getattr(x, f.name)
+                           for f in dataclasses.fields(x)}
+                          if dataclasses.is_dataclass(x) else x)
+        return {f.name: tree(getattr(self, f.name))
+                for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EnvState":
+        d = dict(d)
+        if isinstance(d["vehicle_mem"], dict):
+            d["vehicle_mem"] = VehicleState(**d["vehicle_mem"])
+        if isinstance(d.get("params"), dict):
+            d["params"] = VehicleParams(**d["params"])
+        return cls(**d)
 
 
 class StepOutput(NamedTuple):
@@ -193,11 +228,14 @@ class WheeledEnv:
         self.shard = 0
         self._weights_cache: Dict[Tuple[float, ...], torch.Tensor] = {}
         self._contact_atlas = task.contact_atlas or task.terrain_atlas
-        if (task.fused_step is None and not task.terrain.is_flat
-                and self._contact_atlas is None):
-            raise NotImplementedError(
-                "a heightfield task needs a PatchAtlas: the AoS physics "
-                "path (sim/dynamics.py) is not ported")
+        if task.cfg.use_kernels not in ("auto", "on", "off"):
+            raise ValueError(f"use_kernels={task.cfg.use_kernels!r}: "
+                             "expected 'auto', 'on' or 'off'")
+        # the per-vehicle physics (sim/dynamics.py): asked for, or the only
+        # physics of a heightfield without a patch atlas (K3 reads patches)
+        self.per_vehicle = (task.cfg.use_kernels == "off"
+                            or (not task.terrain.is_flat
+                                and self._contact_atlas is None))
 
     # ------------------------------------------------------------------ reset
 
@@ -206,9 +244,12 @@ class WheeledEnv:
         n = self.num_envs
         params = task.init_params(g, n, dev)
         vehicle = task.sample_spawn(g, n, dev)
+        per_vehicle = self.per_vehicle
         state = EnvState(
-            vehicle_mem=pack_state(vehicle),
-            packed_params=pack_params(params, task.terrain.friction),
+            vehicle_mem=vehicle if per_vehicle else pack_state(vehicle),
+            packed_params=(None if per_vehicle
+                           else pack_params(params, task.terrain.friction)),
+            params=params if per_vehicle else None,
             step_count=torch.zeros((n,), dtype=torch.int32, device=dev),
             common_step=0,
             reward_weights=self._weights_tensor(
@@ -228,7 +269,7 @@ class WheeledEnv:
 
     def step(self, state: EnvState,
              action: torch.Tensor) -> Tuple[EnvState, StepOutput]:
-        if self.task.fused_step is not None:
+        if self.task.fused_step is not None and not self.per_vehicle:
             return self.task.fused_step(self, state, action)
         return self._generic_step(state, action)
 
@@ -241,10 +282,17 @@ class WheeledEnv:
         # 1. action -> joint targets (action manager)
         steer_t, wheel_t = action_to_targets(action, cfg.action)
 
-        # 2. physics decimation: kernel K2 (flat) or K3 (heightfield)
-        mem = self._physics(state.vehicle_mem, state.packed_params,
-                            steer_t.T.contiguous(), wheel_t.T.contiguous())
-        vehicle = unpack_state(mem)
+        # 2. physics decimation: kernel K2 (flat) or K3 (heightfield), or
+        # the per-vehicle physics with its contact data
+        if self.per_vehicle:
+            vehicle, aux = dynamics.step(
+                prev_vehicle, state.params, task.terrain, steer_t, wheel_t,
+                cfg.sim_dt, cfg.decimation, self._contact_atlas)
+        else:
+            mem = self._physics(state.vehicle_mem, state.packed_params,
+                                steer_t.T.contiguous(),
+                                wheel_t.T.contiguous())
+            vehicle, aux = unpack_state(mem), None
 
         # 3. interval events: velocity pushes
         vehicle, push_timers = self._apply_pushes(vehicle, state.push_timers)
@@ -261,7 +309,7 @@ class WheeledEnv:
         ctx = self._make_ctx(dataclasses.replace(
             state, command=command, step_count=step_count,
             common_step=common_step, last_action=action),
-            prev_vehicle, vehicle)
+            prev_vehicle, vehicle, aux)
 
         # 5. terminations (before reset; parity with termination_manager)
         time_out = step_count >= self.max_episode_length
@@ -304,8 +352,8 @@ class WheeledEnv:
                                                   common_step)
 
         new_state = EnvState(
-            vehicle_mem=pack_state(vehicle),
-            packed_params=state.packed_params,
+            vehicle_mem=vehicle if self.per_vehicle else pack_state(vehicle),
+            packed_params=state.packed_params, params=state.params,
             step_count=step_count, common_step=common_step,
             reward_weights=reward_weights, last_action=last_action,
             command=command, command_timer=command_timer,
@@ -315,8 +363,8 @@ class WheeledEnv:
         )
 
         # 9. observations (post-reset; parity with observation_manager order)
-        obs = task.observe(self._make_ctx(new_state, prev_vehicle, vehicle),
-                           g)
+        obs = task.observe(self._make_ctx(new_state, prev_vehicle, vehicle,
+                                          aux), g)
 
         info = {
             "episode_return": ep_return,      # valid where done
@@ -348,15 +396,17 @@ class WheeledEnv:
                                p=atlas.p, nx=nx, ny=ny, cell=atlas.cell)
 
     def _make_ctx(self, state: EnvState, prev_vehicle: VehicleState,
-                  vehicle: Optional[VehicleState] = None) -> StepCtx:
+                  vehicle: Optional[VehicleState] = None,
+                  aux: Optional[dynamics.ContactAux] = None) -> StepCtx:
         v = state.vehicle if vehicle is None else vehicle
         return StepCtx(
-            vehicle=v, params=state.packed_params, terrain=self.task.terrain,
+            vehicle=v, terrain=self.task.terrain,
+            params=state.params if self.per_vehicle else state.packed_params,
             body_lin_vel=wmath.quat_rotate_inverse(v.quat, v.lin_vel),
             body_ang_vel=wmath.quat_rotate_inverse(v.quat, v.ang_vel),
             last_action=state.last_action, prev_vehicle=prev_vehicle,
             command=state.command, step_count=state.step_count,
-            common_step=state.common_step)
+            common_step=state.common_step, aux=aux)
 
     def _weights_tensor(self, weights: Tuple[float, ...]) -> torch.Tensor:
         """Device tensor of the given weights, made once per distinct value

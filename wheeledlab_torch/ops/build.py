@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ library.
 
-Each library is one `.cu` file of `wheeledlab_torch/csrc/` with a plain C
-interface. It is compiled with nvcc for Hopper (`sm_90a`) at first use into
-`wheeledlab_torch/_build/`, named by a hash of every source in `csrc/` and
-of the flags, and loaded with `ctypes`. No PyTorch headers are involved, so
-a build takes seconds; `build_all` runs one nvcc per source, in parallel.
+Each kernel library is one `.cu` file of `wheeledlab_torch/csrc/` with a
+plain C interface. It is compiled with nvcc for Hopper (`sm_90a`) at first
+use into `wheeledlab_torch/_build/`, named by a hash of every source in
+`csrc/` and of the flags, and loaded with `ctypes`. No PyTorch headers are
+involved, so a build takes seconds; `build_all` runs one nvcc per source, in
+parallel. `build_host` compiles a host C++ source (the native library,
+`wheeledlab_torch/native/`) with the host's C++ compiler into the same
+directory, named by a hash of the source and the flags.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
@@ -114,3 +118,44 @@ def build(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` once per process."""
     return ctypes.CDLL(build(name))
+
+
+HOST_CXX = ("c++", "g++", "clang++")
+HOST_CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+
+
+def host_library_path(src: str) -> str:
+    """Where the build of the host C++ source `src` lives."""
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(src: str) -> Optional[str]:
+    """Compile the host C++ source `src` into a shared library with the
+    first of `HOST_CXX` that succeeds, unless its build exists; returns the
+    library path, or None when no compiler builds it. The build goes to a
+    temporary file renamed into place, so concurrent processes never load
+    a half-written library."""
+    out = host_library_path(src)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        for cxx in HOST_CXX:
+            try:
+                subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", tmp, src],
+                               check=True, capture_output=True, timeout=120)
+            except (OSError, subprocess.CalledProcessError,
+                    subprocess.TimeoutExpired):
+                continue
+            os.replace(tmp, out)
+            return out
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

@@ -1,17 +1,19 @@
 """Top-down trajectory rendering — the port of
 `wheeledlab_tpu/render/topdown.py` (the training-video equivalent of the
 reference's CustomRecordVideo, custom_video_recorder.py:12-75). Video frames
-are rasterized on the host, in numpy, from logged trajectories: the same
-pixels as the JAX package's numpy rasterizer (its optional native C++
-rasterizer is not ported). Encoded with PyAV (H.264) or OpenCV (MPEG-4) where
-one is installed, else saved as a .npy frame stack: there is no hard video
-dependency."""
+are rasterized on the host from logged trajectories: by the port's native
+C++ library (`wheeledlab_torch/native`: trails, disks, headings) where a C++
+toolchain builds it, else by numpy, as the JAX package does. Encoded with
+PyAV (H.264) or OpenCV (MPEG-4) where one is installed, else saved as a .npy
+frame stack: there is no hard video dependency."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+
+from .. import native
 
 
 def _draw_disk(img: np.ndarray, cx: float, cy: float, r: float, color) -> None:
@@ -69,6 +71,17 @@ def render_drift_frames(
     ], -1)).astype(np.uint8)
 
     frames = np.empty((T, size, size, 3), np.uint8)
+    frames[:] = bg
+
+    # the native C++ rasterizer, where it builds
+    px = positions[:, :B, 0] * scale + size / 2
+    py = size / 2 - positions[:, :B, 1] * scale
+    pos_px = np.stack([px, py], axis=-1).astype(np.float32)
+    if native.rasterize_trajectories(
+            frames, pos_px, None if yaws is None else yaws[:, :B],
+            colors, trail):
+        return frames
+
     for t in range(T):
         frame = bg.copy()
         for b in range(B):
@@ -97,10 +110,10 @@ def render_map_frames(
     trail: int = 40,
 ) -> np.ndarray:
     """Top-down frames over a grid-world background (visual task map or
-    elevation heightfield): the car positions and, when given, the goals.
-    Grid convention: world x -> cols, y -> rows, centered at the origin.
-    `yaws` and `trail` are accepted for the reference's signature; as in its
-    numpy rasterizer, this renderer draws neither headings nor trails."""
+    elevation heightfield): the cars and, when given, the goals. Grid
+    convention: world x -> cols, y -> rows, centered at the origin. The
+    native rasterizer draws each car's trail and heading too; the numpy
+    fallback draws the car disks alone, as the reference's does."""
     rows, cols = background_grid.shape
     extent = max(rows, cols) * cell / 2
     scale = size / (2 * extent)
@@ -129,10 +142,13 @@ def render_map_frames(
     px = positions[:, :B, 0] * scale + size / 2
     py = size / 2 - positions[:, :B, 1] * scale
     pos_px = np.stack([px, py], axis=-1).astype(np.float32)
-    for t in range(T):
-        for b in range(B):
-            _draw_disk(frames[t], pos_px[t, b, 0], pos_px[t, b, 1], 3.5,
-                       colors[b])
+    if not native.rasterize_trajectories(
+            frames, pos_px, None if yaws is None else yaws[:, :B], colors,
+            trail):
+        for t in range(T):
+            for b in range(B):
+                _draw_disk(frames[t], pos_px[t, b, 0], pos_px[t, b, 1], 3.5,
+                           colors[b])
     if goals is not None:
         for t in range(T):
             for b in range(B):

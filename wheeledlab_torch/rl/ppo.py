@@ -152,13 +152,14 @@ def traj_captures(env_state: EnvState) -> Dict[str, torch.Tensor]:
     """One step's trajectory capture of the first 8 envs, for the training
     videos (the reference's `traj_captures`): position, yaw, orientation
     (for the policy-view clip of camera tasks) and goal."""
-    mem = env_state.vehicle_mem                     # (21, B) packed rows
-    qw, qx, qy, qz = mem[3, :8], mem[4, :8], mem[5, :8], mem[6, :8]
+    v = env_state.vehicle
+    quat = v.quat[:8]
+    qw, qx, qy, qz = quat.unbind(-1)
     return {
-        "traj/pos": mem[0:3, :8].T,
+        "traj/pos": v.pos[:8],
         "traj/yaw": torch.atan2(2 * (qw * qz + qx * qy),
                                 1 - 2 * (qy**2 + qz**2)),
-        "traj/quat": mem[3:7, :8].T,
+        "traj/quat": quat,
         "traj/cmd": env_state.command[:8, :2],
     }
 

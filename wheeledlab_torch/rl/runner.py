@@ -18,7 +18,6 @@ metrics, videos and stdout."""
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import json
 import os
 import threading
@@ -237,8 +236,7 @@ def checkpoint_payload(learner, state: TrainState, world: World) -> dict:
         "iteration": state.iteration,
         "world_size": world.size,
         "env_generator": learner.env.generator.get_state(),
-        "env_state": {f.name: getattr(es, f.name)
-                      for f in dataclasses.fields(es)},
+        "env_state": es.to_dict(),
         "obs": state.obs,
         **{k: getattr(state, k) for k in _CARRY if hasattr(state, k)},
     }
@@ -296,7 +294,7 @@ def restore_checkpoint(run_dir: str, step: int, learner,
         learner.generator.set_state(ck["generator"])
     learner.env.generator.set_state(ck["env_generator"])
     return learner.state_cls(
-        env_state=EnvState(**ck["env_state"]), obs=ck["obs"],
+        env_state=EnvState.from_dict(ck["env_state"]), obs=ck["obs"],
         iteration=ck["iteration"], **{k: ck[k] for k in _CARRY if k in ck})
 
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from ..envs.env import WheeledEnv
 from ..utils.config import TASKS, apply_overrides
 from .drift.task import DriftTaskCfg, make_drift_env
 from .elevation.task import ElevationTaskCfg, make_elevation_env
@@ -58,11 +59,14 @@ def resolve_task(task_name: str) -> Dict[str, Any]:
 
 def make_env(task_name: str, num_envs: Optional[int] = None,
              overrides: Optional[Dict[str, Any]] = None, play: bool = False,
-             device="cuda", seed: int = 0, shard: int = 0):
+             device="cuda", seed: int = 0, shard: int = 0,
+             use_kernels: Optional[str] = None):
     """Build a task's env (its play variant if `play`) on `device` (CUDA
     unless the caller asks for the CPU); its random draws come from a
     generator seeded with `seed`. `shard` is the env's rank in a job of
-    several ranks, which offsets its in-kernel random stream."""
+    several ranks, which offsets its in-kernel random stream.
+    `use_kernels` sets `EnvCfg.use_kernels` ("off": the per-vehicle
+    physics of `sim/dynamics.py` through the generic step)."""
     entry = resolve_task(task_name)
     cfg = entry["play_cfg"] if play else entry["cfg"]
     if num_envs is not None:
@@ -70,6 +74,10 @@ def make_env(task_name: str, num_envs: Optional[int] = None,
     if overrides:
         cfg = apply_overrides(cfg, dict(overrides))
     env = entry["make"](cfg, device=device, seed=seed)
+    if use_kernels is not None:
+        task = env.task._replace(
+            cfg=env.task.cfg.replace(use_kernels=use_kernels))
+        env = WheeledEnv(task, device=device, seed=seed)
     env.task_cfg = cfg  # the resolved task-level cfg, for introspection
     env.shard = shard
     return env

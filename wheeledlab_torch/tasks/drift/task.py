@@ -4,9 +4,12 @@ drifting/mushr_drift_env_cfg.py).
 Oval track: two straights at x = ±LINE_RADIUS (|y| <= STRAIGHT) joined by
 semicircles of radius LINE_RADIUS centered at (0, ±STRAIGHT). In the
 training variant the reward terms, terminations and reset are computed by
-the fused step (`tasks/drift/fused.py`). The play variants strip rewards,
-curriculum and terminations and go through the generic manager step, whose
-physics is kernel K2; they report the `slip_deg` and `speed` metrics."""
+the fused step (`tasks/drift/fused.py`); with `EnvCfg.use_kernels="off"`
+the generic manager step computes them from the term functions below
+(reference task.py:161-213), on the per-vehicle physics. The play variants
+strip rewards, curriculum and terminations and go through the generic step,
+whose physics is kernel K2; they report the `slip_deg` and `speed`
+metrics."""
 
 from __future__ import annotations
 
@@ -38,16 +41,93 @@ MAX_SPEED = 3.0
 
 SPAWN_Z = 0.06  # body-origin rest height (params.com_height)
 
-# Reward terms with their initial weights (DriftRewardsCfg,
-# mushr_drift_env_cfg.py:242-299), in the fused step's row order.
+
+# ---------------------------------------------------------------------------
+# Reward terms (DriftRewardsCfg, mushr_drift_env_cfg.py:242-299)
+# ---------------------------------------------------------------------------
+
+
+def _cross_track_sq(pos: torch.Tensor, straight: float,
+                    radius: float) -> torch.Tensor:
+    """Squared distance to the track line of the given radius — the
+    piecewise oval metric (cross_track_dist, mushr_drift_env_cfg.py:
+    173-193)."""
+    x, y = pos[..., 0], pos[..., 1]
+    return torch.where(
+        torch.abs(y) < straight,
+        torch.where(x > 0, (x - radius) ** 2, (x + radius) ** 2),
+        torch.where(
+            y > 0,
+            (torch.sqrt((y - straight) ** 2 + x**2) - radius) ** 2,
+            (torch.sqrt((y + straight) ** 2 + x**2) - radius) ** 2))
+
+
+def track_progress_rate(ctx: StepCtx) -> torch.Tensor:
+    """World-frame yaw angular velocity (:160-165)."""
+    return ctx.vehicle.ang_vel[..., 2]
+
+
+def vel_dist(ctx: StepCtx, speed_target: float = MAX_SPEED,
+             offset: float = -MAX_SPEED**2) -> torch.Tensor:
+    """(ground_speed - target)^2 + offset (:167-171)."""
+    return (ground_speed(ctx) - speed_target) ** 2 + offset
+
+
+def cross_track_dist(ctx: StepCtx, straight: float = STRAIGHT,
+                     track_radius: float = LINE_RADIUS,
+                     offset: float = -1.0, p: float = 1.0) -> torch.Tensor:
+    """sqrt(piecewise squared distance) + offset, to the power p
+    (:173-193)."""
+    ctd = torch.sqrt(_cross_track_sq(ctx.vehicle.pos, straight,
+                                     track_radius)) + offset
+    return torch.sign(ctd) * torch.abs(ctd) ** p if p != 1.0 else ctd
+
+
+def energy_through_turn(ctx: StepCtx,
+                        straight: float = STRAIGHT) -> torch.Tensor:
+    """speed^2 while in the corners (:195-199)."""
+    speed = torch.linalg.vector_norm(ctx.body_lin_vel, dim=-1)
+    return torch.where(torch.abs(ctx.vehicle.pos[..., 1]) > straight,
+                       speed**2, 0.0)
+
+
+def side_slip(ctx: StepCtx, min_thresh: float = 0.25,
+              max_thresh: float = SLIP_THRESHOLD,
+              min_vel_x: float = 1.0) -> torch.Tensor:
+    """|atan2(v_y, v_x)| gated by the forward speed and thresholds
+    (:219-230)."""
+    vel = ctx.body_lin_vel
+    slip_angle = torch.abs(torch.atan2(vel[..., 1], vel[..., 0]))
+    valid = torch.where(
+        (torch.abs(vel[..., 0]) < min_vel_x) | (slip_angle > max_thresh),
+        0.0, slip_angle)
+    return torch.where(valid < min_thresh, 0.0, valid)
+
+
+def turn_left_go_right(ctx: StepCtx,
+                       ang_vel_thresh: float = 1.0) -> torch.Tensor:
+    """Counter-steer reward: -mean(steer) * clamp(yaw rate), at least 0
+    (:232-240)."""
+    steer_mean = ctx.vehicle.steer_pos.mean(dim=-1)
+    ang_vel = torch.clamp(ctx.body_ang_vel[..., 2], -ang_vel_thresh,
+                          ang_vel_thresh)
+    return torch.clamp(steer_mean * ang_vel * -1.0, min=0.0)
+
+
+def term_pens(ctx: StepCtx) -> torch.Tensor:
+    """is_terminated_term on out_of_bounds (:295-299)."""
+    return ctx.term_flags["out_of_bounds"].to(torch.float32)
+
+
+# The reward terms with their initial weights, in the fused step's row order
 REWARD_TERMS = (
-    RewardTerm("side_slip", 10.0),
-    RewardTerm("vel", -5.0),
-    RewardTerm("progress", 40.0),
-    RewardTerm("tlgr", 0.0),
-    RewardTerm("turn_energy", 20.0),
-    RewardTerm("cross_track", -50.0),
-    RewardTerm("term_pens", -5000.0),
+    RewardTerm("side_slip", 10.0, side_slip),
+    RewardTerm("vel", -5.0, vel_dist),
+    RewardTerm("progress", 40.0, track_progress_rate),
+    RewardTerm("tlgr", 0.0, turn_left_go_right),
+    RewardTerm("turn_energy", 20.0, energy_through_turn),
+    RewardTerm("cross_track", -50.0, cross_track_dist),
+    RewardTerm("term_pens", -5000.0, term_pens),
 )
 CURRICULUM = (
     CurriculumTerm("side_slip", 20.0, 20, 10),
@@ -226,6 +306,15 @@ def make_drift_task(cfg: DriftTaskCfg,
     def observe(ctx, g):
         return blind_obs(ctx, g, cfg.enable_corruption)
 
+    def term_pens_safe(ctx):
+        if not cfg.terminations_enabled:
+            return torch.zeros(ctx.vehicle.pos.shape[0],
+                               device=ctx.vehicle.pos.device)
+        return term_pens(ctx)
+
+    reward_terms = REWARD_TERMS[:-1] + (
+        REWARD_TERMS[-1]._replace(fn=term_pens_safe),)
+
     fused_step = None
     if cfg.rewards_enabled:
         from .fused import make_fused_drift_step
@@ -238,7 +327,7 @@ def make_drift_task(cfg: DriftTaskCfg,
         obs_dim=BLIND_OBS_DIM,
         init_params=init_params,
         sample_spawn=sample_spawn,
-        reward_terms=REWARD_TERMS if cfg.rewards_enabled else (),
+        reward_terms=reward_terms if cfg.rewards_enabled else (),
         termination_fns=({"out_of_bounds": cart_off_track}
                          if cfg.terminations_enabled else {}),
         observe=observe,

@@ -5,12 +5,16 @@ binary dilation).
 
 Host-side numpy at task-build time, keyed by seed: the same seed gives the
 JAX package's grid bit for bit (`np.random.default_rng(seed)`, the same
-draws in the same order). A [num_rows, num_cols] bool grid; world x maps to
-columns and world y to rows (traversability_utils.py:68-88)."""
+draws in the same order); or the native C++ generator (`backend="native"`),
+whose grid for a seed equals the JAX package's native grid. A [num_rows,
+num_cols] bool grid; world x maps to columns and world y to rows
+(traversability_utils.py:68-88)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from ... import native
 
 
 def generate_path(start_row, start_col, end_row, end_col, grid, rng):
@@ -81,12 +85,18 @@ def generate_traversability_map(
 ) -> np.ndarray:
     """Full map: a grid of sub-envs, each carved independently, then dilated
     with the reference's asymmetric L1 structure (visual/utils/
-    __init__.py:78-86). Only the numpy backend is ported: the reference's
-    `backend="native"` runs its host C++ generator, which has its own RNG
-    stream."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"map backend {backend!r} is not ported; use backend='numpy'")
+    __init__.py:78-86). backend="native" runs the host C++ generator
+    (`wheeledlab_torch/native`): the same algorithm with its own
+    deterministic stream, where a C++ toolchain builds it, else the numpy
+    path; "numpy" (the default) is the reference-aligned implementation."""
+    if backend not in ("numpy", "native"):
+        raise ValueError(f"map backend {backend!r}: expected 'numpy' or "
+                         "'native'")
+    if backend == "native":
+        grid = native.generate_traversability_map(
+            seed, map_size, env_size, sub_group_size, num_walkers)
+        if grid is not None:
+            return grid
     rng = np.random.default_rng(seed)
     rows, cols = map_size
     e_rows, e_cols = env_size

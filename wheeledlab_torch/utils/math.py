@@ -10,6 +10,43 @@ from __future__ import annotations
 import torch
 
 
+def quat_identity() -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32)
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """q over its norm (at least eps), the squares summed in (w, x, y, z)
+    order as the reference's reduction and the packed-row step add them."""
+    w, x, y, z = q.unbind(-1)
+    norm = torch.sqrt(w * w + x * x + y * y + z * z)[..., None]
+    return q / torch.clamp(norm, min=eps)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, (w, x, y, z)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_integrate(q: torch.Tensor, omega_w: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+    """Integrate the quaternion by the world-frame angular velocity over dt:
+    q' = q + 0.5 * dt * (omega_quat * q), renormalized."""
+    zeros = torch.zeros_like(omega_w[..., :1])
+    omega_quat = torch.cat([zeros, omega_w], dim=-1)
+    dq = 0.5 * dt * quat_mul(omega_quat, q)
+    return quat_normalize(q + dq)
+
+
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
 
