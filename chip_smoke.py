@@ -72,7 +72,17 @@ printing its final line:
              on RSS_ELEV_CONFIG (1024 envs, obs 689), where K3 must (384
              launches); and on RSS_VISUAL_CONFIG (512 envs, obs 3208, colored
              world), where K2 must (384 launches); no other kernel may
-             launch.
+             launch. The elevation and visual runs (and every run of them
+             below) must apply the policy through
+             `fused_actor_critic_apply` (its call counter, reset and read
+             like the launch counters: 447 calls in 3 iterations), the
+             drift and recurrent runs never.
+   fused   — the fused first layer against the unfused forward on the card
+             at 1024 x 689 and 512 x 3208, float32 within 1e-5 and bfloat16
+             within the bound of tests/test_torch_fused_input_layer.py;
+             then RSS_ELEV_CONFIG and RSS_VISUAL_CONFIG, 3 iterations a
+             run with `agent.fuse_input_layer` off, on, on, off, each
+             iteration's update ms and iteration ms.
    recurrent — ActorCriticRecurrent (LSTM-256, obs 14) at 1024 envs, one
              32-step sequence with resets on the card and on the CPU: means,
              values and hidden state within RNN_FORWARD_TOL (both compute
@@ -114,7 +124,8 @@ printing its final line:
              time goes (the whole step, its observation: render,
              augmentation and noise, and its K2 launch): device ms and
              launches from torch.profiler's record of the card, beside the
-             wall ms of the same calls unprofiled.
+             wall ms of the same calls unprofiled, in a process of its own
+             (this script's `--visual-breakdown` mode).
 
 8. distributed — POD_DRIFT_CONFIG (65,536 envs) over torch.distributed
              on the one card, last and in processes of its own:
@@ -130,6 +141,14 @@ printing its final line:
              hold kernels of the card, K1 among them; `scripts.scale_bench`
              at world size 1, rollout and full PPO. Every subprocess runs in a
              session of its own, killed if it outlives JOB_TIMEOUT_S.
+9. tensor parallel — two gloo ranks on the one card as `global_mesh(2)`
+             (data 1 x model 2; this script's `--tp-rank` mode): a
+             RSS_DRIFT_CONFIG policy acts for 8 steps of a 1024-env drift
+             env on each rank (8 K1 launches a rank); the rank's share of
+             the policy (`TensorParallelActorCritic`) on those 8192
+             observations against the whole policy, mean and value within
+             1e-5, one PPO loss's gradients within 1e-5 of the whole
+             gradients' slices; the TP forward's ms beside the whole one's.
 
 Every launch counter is set to 0 just before a path is driven and read just
 after. It imports nothing of JAX. The last line is the result object.
@@ -1049,13 +1068,17 @@ def check_launches(path, got, want):
 
 
 def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
-              overrides=()):
+              overrides=(), fused=False):
     """3 full-width training iterations of `config` (`envs` envs, with the
     (key, value) `overrides`); `kernel` must carry every env step and no
-    other kernel may launch. Returns (launches, iteration ms)."""
+    other kernel may launch. With `fused` every policy apply (each rollout
+    step, each minibatch update, the bootstrap value) must go through
+    `fused_actor_critic_apply`; without it none may. Returns (launches,
+    iteration ms)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.rl import networks
     from wheeledlab_torch.rl.runner import train
     from wheeledlab_torch.utils.config import RUN_CONFIGS, override
 
@@ -1072,11 +1095,20 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
             cfg.agent.num_learning_epochs,
             cfg.agent.num_mini_batches) == (envs, 128, 5, 4)
     reset_launches()
+    networks.FUSED_CALLS = 0
     state, last = train(cfg)
     torch.cuda.synchronize()
     launches = read_launches()
     want = {**NO_LAUNCHES, kernel: iters * cfg.agent.num_steps_per_env}
     check_launches(config, launches, want)
+    agent = cfg.agent
+    applies = iters * (agent.num_steps_per_env + 1
+                       + agent.num_learning_epochs * agent.num_mini_batches)
+    print(f"{config}: fused_actor_critic_apply calls {networks.FUSED_CALLS}"
+          f" of {applies} policy applies", flush=True)
+    if networks.FUSED_CALLS != (applies if fused else 0):
+        raise AssertionError(f"{config}: {networks.FUSED_CALLS} fused "
+                             f"applies, expected {applies if fused else 0}")
     with open(os.path.join(logs, run_name, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     for row in rows:
@@ -1105,9 +1137,10 @@ def train_phase(device, logs):
         krng = train_run(device, logs, "RSS_DRIFT_CONFIG", "krng", 14, "K4")
     finally:
         del os.environ["WHEELEDLAB_KERNEL_RNG"]
-    elev = train_run(device, logs, "RSS_ELEV_CONFIG", "elev", 689, "K3")
+    elev = train_run(device, logs, "RSS_ELEV_CONFIG", "elev", 689, "K3",
+                     fused=True)
     visual = train_run(device, logs, "RSS_VISUAL_CONFIG", "visual", 3208,
-                       "K2", envs=VISUAL_ENVS)
+                       "K2", envs=VISUAL_ENVS, fused=True)
     return drift, krng, elev, visual
 
 
@@ -1300,13 +1333,111 @@ def bf16_train_phase(device, logs):
             stored.clear()
             _, iter_ms = train_run(
                 device, logs, "RSS_ELEV_CONFIG", f"elev_{dtype}_{i}", 689,
-                "K3", overrides=(("agent.compute_dtype", dtype),))
+                "K3", overrides=(("agent.compute_dtype", dtype),),
+                fused=True)
             if stored != [getattr(torch, dtype)] * 3:
                 raise AssertionError(f"{dtype} run stored obs as {stored}")
             ms[dtype].append(iter_ms)
     finally:
         ppo.PPO.update_epochs = update
     return ms
+
+
+# tests/test_torch_fused_input_layer.py's bars: float32 within F32_FUSED_TOL
+# of the unfused forward; bfloat16 within one bfloat16 ulp of the value
+# plus four of the head's largest value
+F32_FUSED_TOL = 1e-5
+BF16_REL, BF16_OF_MAX = 2.0 ** -7, 4 * 2.0 ** -7
+
+
+def fused_forward_check(device, envs, obs_dim, dtype):
+    """The fused forward of an ActorCritic (relu, [64, 64], seed 0) against
+    its unfused forward on `envs` x `obs_dim` normal obs on the card;
+    returns the largest |d| of mean and value."""
+    import torch
+
+    from wheeledlab_torch.rl.networks import (
+        ActorCritic, fused_actor_critic_apply,
+    )
+
+    model = ActorCritic(obs_dim, 2, activation="relu",
+                        generator=torch.Generator().manual_seed(0),
+                        compute_dtype=dtype).to(device)
+    obs = torch.randn(envs, obs_dim, device=device, generator=torch.Generator(
+        device=device).manual_seed(1))
+    with torch.no_grad():
+        got = fused_actor_critic_apply(model, obs)
+        want = model(obs)
+    err = 0.0
+    for name, g, w in zip(("mean", "std", "value"), got, want):
+        d = (g - w).abs()
+        if dtype == "float32":
+            ok = bool((d <= F32_FUSED_TOL).all())
+        else:
+            ok = bool((d <= BF16_REL * w.abs()
+                       + BF16_OF_MAX * w.abs().max()).all())
+        if not ok or g.dtype != torch.float32:
+            raise AssertionError(f"fused {dtype} {envs} x {obs_dim} {name}: "
+                                 f"max |d| {float(d.max())}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def fused_phase(device, logs, card):
+    """The fused first layer on the card: its forward against the unfused
+    one at RSS_ELEV_CONFIG's and RSS_VISUAL_CONFIG's shapes in float32 and
+    bfloat16; then each config trained 3 iterations a run with
+    `agent.fuse_input_layer` off and on in turns (off, on, on, off), every
+    apply of an "on" run fused and none of an "off" run, with each
+    iteration's update (synchronized wall ms) and whole ms. Returns
+    {config: {forward max |d| by dtype, ms by setting}}."""
+    import torch
+
+    from wheeledlab_torch.rl import ppo
+
+    phase("fused first layer")
+    # the wide-observation configs that take the fused apply: (envs, obs)
+    shapes = {"RSS_ELEV_CONFIG": (1024, 689),
+              "RSS_VISUAL_CONFIG": (VISUAL_ENVS, 3208)}
+    out = {}
+    for config, (envs, obs_dim) in shapes.items():
+        out[config] = {f"fused_vs_unfused_max_abs_d_{dtype}":
+                       fused_forward_check(device, envs, obs_dim, dtype)
+                       for dtype in ("float32", "bfloat16")}
+        print(f"{config}: fused against unfused forward, {envs} x {obs_dim},"
+              f" max |d| {out[config]}", flush=True)
+
+    update, update_ms = ppo.PPO.update_epochs, []
+
+    def timed_update(self, dataset):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = update(self, dataset)
+        torch.cuda.synchronize()
+        update_ms.append(1000.0 * (time.perf_counter() - t0))
+        return res
+
+    ppo.PPO.update_epochs = timed_update
+    try:
+        for config, (envs, obs_dim) in shapes.items():
+            ms = {"off": {"iteration_ms": [], "update_ms": []},
+                  "on": {"iteration_ms": [], "update_ms": []}}
+            kernel = "K3" if config == "RSS_ELEV_CONFIG" else "K2"
+            for i, fuse in enumerate((False, True, True, False)):
+                update_ms.clear()
+                _, iter_ms = train_run(
+                    device, logs, config, f"fuse_{config}_{i}", obs_dim,
+                    kernel, envs=envs, fused=fuse,
+                    overrides=(("agent.fuse_input_layer", fuse),))
+                key = "on" if fuse else "off"
+                ms[key]["iteration_ms"].append(iter_ms)
+                ms[key]["update_ms"].append(list(update_ms))
+            out[config].update(ms)
+            print(json.dumps({"name": f"{config} fuse_input_layer off / on, "
+                              "in turns", **ms, "card": card}), flush=True)
+    finally:
+        ppo.PPO.update_epochs = update
+    return out
 
 
 def recurrent_play_phase(logs):
@@ -2029,6 +2160,146 @@ def distributed_phase(logs, card):
             "scale_bench": rows}
 
 
+TP_ENVS, TP_STEPS = 1024, 8     # the drift env that feeds the TP policy
+TP_CALLS = 20                   # forward calls timed, the same on each rank
+# tests/test_torch_tensor_parallel.py's bar
+TP_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def max_abs_d(got, want, what):
+    """The largest |got - want|; raises beyond TP_TOL."""
+    import torch
+
+    if not torch.allclose(got, want, **TP_TOL):
+        raise AssertionError(f"{what}: max |d| "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def wall_ms(fn, calls=TP_CALLS):
+    """Synchronized wall ms a call over `calls` calls, after two warm-up
+    calls; a fixed count, so that every rank of a job makes the same
+    collectives."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1000.0 * (time.perf_counter() - t0) / calls
+
+
+def tp_worker(rank, port):
+    """`--tp-rank R PORT`: rank R of a 2-rank gloo job on the one card laid
+    out as `global_mesh(2)` (data 1 x model 2). The whole policy of a
+    RSS_DRIFT_CONFIG learner (seed 0, the same on both ranks) acts for
+    TP_STEPS steps of a TP_ENVS-env drift env through K1; this rank's share
+    of it (`TensorParallelActorCritic`) runs on those observations against
+    the whole policy, forward and one PPO loss's gradients; prints `TP
+    {...}` with the launches, the largest differences and both forwards'
+    ms."""
+    import torch
+
+    from wheeledlab_torch.parallel import distributed
+    from wheeledlab_torch.parallel.mesh import shard_seed
+    from wheeledlab_torch.parallel.tensor_parallel import (
+        TensorParallelActorCritic,
+    )
+    from wheeledlab_torch.rl.ppo import PPOCfg, make_learner
+    from wheeledlab_torch.tasks import make_env
+
+    distributed.initialize(backend="gloo",
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, device="cuda",
+                           timeout_s=JOB_TIMEOUT_S)
+    try:
+        pm = distributed.global_mesh(2)
+        # the ranks of one model group hold the same envs
+        env = make_env("MushrDriftRL-v0", num_envs=TP_ENVS, device="cuda",
+                       seed=shard_seed(0, pm.data_index),
+                       shard=pm.data_index)
+        learner = make_learner(env, PPOCfg(num_steps_per_env=TP_STEPS))
+        reset_launches()
+        _, obs, traj, _ = learner.rollout(learner.init_state())
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with torch.no_grad():
+            _, _, last_value = learner.policy_apply(obs)
+            _, returns, norm_adv = learner.compute_gae(
+                traj["reward"], traj["value"], traj["done"], last_value)
+        flat = lambda x: x.reshape((-1,) + x.shape[2:])
+        rows = flat(traj["obs"])
+        batch = [flat(x) for x in (
+            traj["action"], traj["log_prob"], traj["value"], returns,
+            norm_adv, traj["mean"], traj["std"])]
+        model = learner.model
+        tp = TensorParallelActorCritic(model, pm)
+        split = sorted(k for k, d in tp.placement.items() if d is not None)
+
+        with torch.no_grad():
+            want, got = model(rows), tp(rows)
+        fwd = {name: max_abs_d(g, w, f"TP {name}") for name, g, w in
+               zip(("mean", "std", "value"), got, want)}
+        model.zero_grad(set_to_none=True)
+        learner.ppo_loss(*model(rows), *batch)[0].backward()
+        learner.ppo_loss(*tp(rows), *batch)[0].backward()
+        grad = 0.0
+        for name, p in model.named_parameters():
+            whole = p.grad
+            if name in split:
+                whole = whole.chunk(pm.model_size, 0)[pm.model_index]
+            grad = max(grad, max_abs_d(tp.param(name).grad, whole,
+                                       f"TP gradient {name}"))
+        with torch.no_grad():
+            tp_ms = wall_ms(lambda: tp(rows))
+            whole_ms = wall_ms(lambda: model(rows))
+        print("TP " + json.dumps({
+            "coords": [pm.data_index, pm.model_index], "launches": launches,
+            "rows": rows.shape[0], "split": split,
+            "forward_max_abs_d": fwd, "grad_max_abs_d": grad,
+            "tp_forward_ms": tp_ms, "one_process_forward_ms": whole_ms}),
+            flush=True)
+    finally:
+        distributed.shutdown()
+
+
+def tensor_parallel_phase(card):
+    """Tensor parallelism over 2 gloo ranks on the one card (m = 2, data
+    1; this script's `--tp-rank` mode): K1 carries each rank's TP_STEPS
+    env steps, the TP policy's forward and one PPO loss's gradients equal
+    the whole policy's within TP_TOL on every rank. Returns the numbers for
+    the kernels line."""
+    phase("tensor parallel (2 gloo ranks, m = 2)")
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    port = free_port()
+    outs = run_group([[sys.executable, script, "--tp-rank", str(r),
+                       str(port)] for r in range(2)])
+    ranks = [tagged(out, "TP") for out in outs]
+    for r, res in enumerate(ranks):
+        if res["coords"] != [0, r]:
+            raise AssertionError(f"rank {r} at {res['coords']}")
+        check_launches(f"TP rank {r} of 2 (gloo, {TP_STEPS} drift steps)",
+                       res["launches"], {**NO_LAUNCHES, "K1": TP_STEPS})
+        print(f"TP rank {r}: {res['rows']} rows, split {res['split']}; "
+              f"forward max |d| {res['forward_max_abs_d']}, gradient max "
+              f"|d| {res['grad_max_abs_d']}; forward ms TP "
+              f"{res['tp_forward_ms']:.4f}, one process "
+              f"{res['one_process_forward_ms']:.4f}; {card}", flush=True)
+    print(f"tensor parallel job {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"tp_rank_launches": [r["launches"]["K1"] for r in ranks],
+            "tp_forward_max_abs_d": max(max(r["forward_max_abs_d"].values())
+                                        for r in ranks),
+            "tp_grad_max_abs_d": max(r["grad_max_abs_d"] for r in ranks),
+            "tp_forward_ms": [r["tp_forward_ms"] for r in ranks],
+            "tp_one_process_forward_ms": [r["one_process_forward_ms"]
+                                          for r in ranks]}
+
+
 def timed(fn, window_s=TIMING_WINDOW_S, min_calls=4):
     """ms per call from CUDA events over a window of >= window_s and
     >= min_calls, after two warmup calls."""
@@ -2395,18 +2666,27 @@ def main():
         bf16_ms = bf16_train_phase(device, logs)
         print(json.dumps({"name": "RSS_ELEV_CONFIG iteration ms, in turns",
                           **bf16_ms, "card": card}), flush=True)
+        fused = fused_phase(device, logs, card)
         k2_launches = play_phase(logs)
         vis_play_launches = visual_play_phase(logs)
         rnn_play_launches = recurrent_play_phase(logs)
     k5b_launches, k5a_launches, mppi_launches, probe = script_phase()
     timing = timing_phase(cases, phys_cases, vis_cases, card, registers)
     timing.update(rng_timing_phase(cases, kept, card, registers))
-    breakdown = visual_step_breakdown(device, card)
+    # in a process of its own: a process's first torch.profiler sessions
+    # have always recorded the card, while this one, run in this process
+    # after the other phases, recorded nothing in 2 of 9 full runs on the
+    # H100 (PERF.md)
+    (out,) = run_group([[sys.executable, os.path.abspath(__file__),
+                         "--visual-breakdown", card]])
+    breakdown = tagged(out, "BREAKDOWN")
+    print(json.dumps(breakdown), flush=True)
     # last: it runs in processes of its own, after every profiled phase
     # (torch.profiler recorded nothing on the card in the visual step
     # breakdown once this phase had run before it in this process)
     with tempfile.TemporaryDirectory() as logs:
         pod = distributed_phase(logs, card)
+    tp = tensor_parallel_phase(card)
     # what drawing the rows in the kernel costs over reading them (K1), in
     # this run's graph times
     premium = {b: timing[("K4", b)]["graph_ms"] - timing[("K1", b)]["graph_ms"]
@@ -2429,7 +2709,7 @@ def main():
                     rnn_train_iteration_ms=rnn_ms,
                     **{f"rnn_{k}": v for k, v in rnn_split.items()},
                     rnn_forward_card_vs_cpu_max_abs_d=rnn_forward_d,
-                    mppi_demo_launches=mppi_launches,
+                    mppi_demo_launches=mppi_launches, **tp,
                     **{k: v for k, v in pod.items()
                        if not k.startswith("pod_gloo_krng")},
                     standing_start_graph_ms=standing[1024]["K1"]["graph_ms"],
@@ -2450,6 +2730,7 @@ def main():
                     bound_ms_1024=k("K2")[1024]["bound_ms"],
                     visual_train_launches=vis_launches,
                     visual_train_iteration_ms=vis_ms,
+                    visual_fused=fused["RSS_VISUAL_CONFIG"],
                     visual_play_launches=vis_play_launches,
                     rnn_play_launches=rnn_play_launches,
                     **{f"{key}_{VISUAL_ENVS}": visual_k2[key] for key in (
@@ -2466,6 +2747,7 @@ def main():
                     registers.get("physics_step_hf"),
                     train_iteration_ms=elev_ms,
                     bf16_train_iteration_ms=bf16_ms["bfloat16"],
+                    elev_fused=fused["RSS_ELEV_CONFIG"],
                     f32_turns_train_iteration_ms=bf16_ms["float32"],
                     per_vehicle_patch_max_abs_err=per_vehicle[
                         "vs_k3_atlas_max_abs_err"],
@@ -2526,5 +2808,10 @@ if __name__ == "__main__":
         pod_cli_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--gloo-rank"]:
         gloo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--visual-breakdown"]:
+        print("BREAKDOWN " + json.dumps(visual_step_breakdown(
+            "cuda", sys.argv[2])), flush=True)
     else:
         main()

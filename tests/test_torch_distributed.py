@@ -70,14 +70,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_job(out_dir, job, nproc=2):
-    """Run `job` on `nproc` ranks; returns each rank's saved results."""
+def run_job(out_dir, job, nproc=2, worker=WORKER):
+    """Run `job` on `nproc` ranks of `worker`; returns each rank's saved
+    results."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     env.pop("WHEELEDLAB_KERNEL_RNG", None)
     procs = [subprocess.Popen(
-        [sys.executable, WORKER, str(port), str(nproc), str(rank),
+        [sys.executable, worker, str(port), str(nproc), str(rank),
          str(out_dir), job],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for rank in range(nproc)]

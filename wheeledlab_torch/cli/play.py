@@ -91,8 +91,9 @@ def main(argv=None):
     step = args.checkpoint or checkpoint_steps(run_dir)[-1]
     ck = torch.load(os.path.join(run_dir, "checkpoints", f"{step}.pt"),
                     map_location=device, weights_only=True)
-    # the run's policy class and compute dtype
-    model = make_learner(env, agent_cfg).model
+    # the run's policy class, compute dtype and apply (fused or not)
+    learner = make_learner(env, agent_cfg)
+    model = learner.model
     model.load_state_dict(ck["learner"]["model"])
 
     state, obs = env.reset()
@@ -108,7 +109,7 @@ def main(argv=None):
             if recurrent:
                 hidden, mean, _, _ = model.step(hidden, obs, reset_prev)
             else:
-                mean, _, _ = model(obs)
+                mean, _, _ = learner.policy_apply(obs)
             state, out = env.step(state, mean)
             v = state.vehicle
             for k, x in (("observations", obs), ("actions", mean),

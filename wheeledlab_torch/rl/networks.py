@@ -5,7 +5,10 @@ reference rsl_rl_ppo_cfg.py:12-18).
 
 Compute dtype is float32 by default; `compute_dtype="bfloat16"` runs the
 MLPs with flax `Dense(dtype=bfloat16)` semantics (`dense`), parameters kept
-in float32 and the heads cast back to float32."""
+in float32 and the heads cast back to float32.
+
+`fused_actor_critic_apply` is `ActorCritic.forward` with the actor's and the
+critic's first layers run as one product (`PPOCfg.fuse_input_layer`)."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 # flax's `nn.gelu` is the tanh approximation by default
 _ACTS = {"elu": nn.ELU, "relu": nn.ReLU, "tanh": nn.Tanh,
@@ -116,6 +120,43 @@ class ActorCritic(nn.Module):
         value = mlp_apply(self.critic, obs, dt)[..., 0].float()
         std = torch.exp(torch.clamp(self.log_std, -5.0, 2.0))
         return mean, std.expand_as(mean), value
+
+
+# Calls of `fused_actor_critic_apply`, counted like the kernels' launches
+FUSED_CALLS = 0
+
+
+def fused_actor_critic_apply(model: ActorCritic, obs: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """`model(obs)` with the actor's and the critic's first layers run as
+    one product over their weights concatenated along the output axis — the
+    port of the JAX package's `fused_actor_critic_apply`. One (B, in) x
+    (in, 2 h1) product and its one weight gradient in place of two at
+    N = h1, for wide observations (elevation 689, visual 3208).
+
+    The parameters are unchanged: the weights are concatenated at every
+    call (autograd runs through `torch.cat`), so the state dict,
+    checkpoints and export do not move. In float32 the product is
+    `F.linear`, as `nn.Linear` computes it; in bfloat16 it is `dense`, which
+    rounds where flax's `Dense(dtype=bfloat16)` does (casting the
+    concatenated weight gives the bits of the concatenated casts). The
+    result differs from `model(obs)` only by the product's reduction order.
+    Requires equal first hidden widths."""
+    global FUSED_CALLS
+    FUSED_CALLS += 1
+    dt = model.compute_dtype
+    actor0, critic0 = model.actor[0], model.critic[0]
+    h1 = actor0.out_features
+    w = torch.cat([actor0.weight, critic0.weight], 0)
+    b = torch.cat([actor0.bias, critic0.bias])
+    hidden = (F.linear(obs, w, b) if dt == torch.float32
+              else dense(obs, w, b, dt))
+    hidden = model.actor[1](hidden)
+    mean = mlp_apply(model.actor[2:], hidden[..., :h1], dt).float()
+    value = mlp_apply(model.critic[2:], hidden[..., h1:], dt)[..., 0].float()
+    std = torch.exp(torch.clamp(model.log_std, -5.0, 2.0))
+    return mean, std.expand_as(mean), value
 
 
 def gaussian_log_prob(mean, std, action):

@@ -30,7 +30,8 @@ from ..parallel import distributed, mesh
 from ..parallel.mesh import World
 from ..utils.config import configclass
 from .networks import (
-    DTYPES, ActorCritic, gaussian_entropy, gaussian_kl, gaussian_log_prob,
+    DTYPES, ActorCritic, fused_actor_critic_apply, gaussian_entropy,
+    gaussian_kl, gaussian_log_prob,
 )
 
 
@@ -62,7 +63,11 @@ class PPOCfg:
     init_noise_std: float = 1.0
     rnn_hidden_size: int = 256       # recurrent policy only (rsl_rl default)
     rnn_num_layers: int = 1
-    fuse_input_layer: bool = False   # TPU matmul-tiling knob; no effect here
+    fuse_input_layer: bool = False
+    # ^ run the actor's and the critic's first layers as one product
+    # (`networks.fused_actor_critic_apply`) in the rollout, the update and
+    # the bootstrap value; taken when the first hidden widths are equal.
+    # The recurrent learner ignores it.
     compute_dtype: str = "float32"
     # ^ "bfloat16": the MLP policy computes in bfloat16 (float32 params and
     # heads, `networks.dense`) and the rollout stores its obs in bfloat16.
@@ -126,6 +131,22 @@ def global_moments(x: torch.Tensor, world_size: int):
     mean = distributed.all_reduce_sum_(x.sum()) / n
     sq = distributed.all_reduce_sum_(((x - mean) ** 2).sum())
     return mean, torch.sqrt(sq / n)
+
+
+def all_reduce_grads(params, kl: torch.Tensor, group=None) -> torch.Tensor:
+    """Replace the gradient of every parameter in `params` by its mean over
+    the ranks of `group` (default all; a tensor-parallel job passes its data
+    group), in one collective on one flat buffer that also carries the
+    minibatch's `kl`; returns the mean `kl`. The learner runs it before the
+    adaptive LR and the clip, which then see the global KL and the global
+    norm."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [kl.reshape(1)])
+    distributed.all_reduce_mean_(flat, group)
+    for g, part in zip(grads, torch.split(flat[:-1],
+                                          [g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+    return flat[-1]
 
 
 def reduce_metrics(acc, num_dones, reward_mean, loss_metrics, nan,
@@ -205,6 +226,20 @@ class PPO:
             compute_dtype=cfg.compute_dtype)
 
     @property
+    def fused(self) -> bool:
+        """Whether the policy runs through `fused_actor_critic_apply`."""
+        cfg = self.cfg
+        return (cfg.fuse_input_layer
+                and cfg.actor_hidden[0] == cfg.critic_hidden[0])
+
+    def policy_apply(self, obs: torch.Tensor):
+        """(mean, std, value) of the policy on `obs`: the fused apply when
+        `fused`, else the module's forward (the JAX learner's `apply_fn`)."""
+        if self.fused:
+            return fused_actor_critic_apply(self.model, obs)
+        return self.model(obs)
+
+    @property
     def obs_dtype(self) -> torch.dtype:
         """The dtype the rollout stores its obs in (JAX `store_obs`)."""
         return DTYPES[self.cfg.compute_dtype]
@@ -275,7 +310,7 @@ class PPO:
         env_state, obs, acc = state.env_state, state.obs, None
         captures = [] if capture_traj else None
         for t in range(self.cfg.num_steps_per_env):
-            mean, std, value = self.model(obs)
+            mean, std, value = self.policy_apply(obs)
             env_state, out, acc = self.act_and_step(
                 traj, t, env_state, obs, mean, std, value, acc, captures)
             obs = out.obs
@@ -312,7 +347,7 @@ class PPO:
     def loss(self, batch):
         """(total, (surrogate, value, entropy, kl)) of one minibatch."""
         obs, *rest = batch
-        mean, std, value = self.model(obs)
+        mean, std, value = self.policy_apply(obs)
         return self.ppo_loss(mean, std, value, *rest)
 
     def ppo_loss(self, mean, std, value, action, old_log_prob, old_value,
@@ -351,7 +386,7 @@ class PPO:
         total.backward()
         kl = kl.detach()
         if self.world is not None:
-            kl = self.all_reduce_grads(kl)
+            kl = all_reduce_grads(list(self.model.parameters()), kl)
 
         if cfg.schedule == "adaptive":
             # rsl_rl adaptive-KL LR, set before this minibatch's Adam step
@@ -370,19 +405,6 @@ class PPO:
             g.copy_(torch.where(keep, g, g / g_norm * cfg.max_grad_norm))
         self.optimizer.step()
         return torch.stack([total, surr, vloss, ent, kl]).detach()
-
-    def all_reduce_grads(self, kl: torch.Tensor) -> torch.Tensor:
-        """Replace every parameter's gradient by its mean over the ranks, in
-        one collective on one flat buffer that also carries the minibatch's
-        `kl`; returns the mean `kl`. Runs before the adaptive LR and the
-        clip, which then see the global KL and the global norm."""
-        grads = [p.grad for p in self.model.parameters()]
-        flat = torch.cat([g.reshape(-1) for g in grads] + [kl.reshape(1)])
-        distributed.all_reduce_mean_(flat)
-        for g, part in zip(grads, torch.split(flat[:-1],
-                                              [g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
-        return flat[-1]
 
     def update_epochs(self, dataset) -> torch.Tensor:
         """dataset: tuple of time-major [T, B, ...] tensors (obs, action,
@@ -460,7 +482,7 @@ class PPO:
         rollout's `traj/*` channels ([T, 8, ...] tensors, not scalars)."""
         env_state, obs, traj, acc = self.rollout(state, capture_traj)
         with torch.no_grad():
-            _, _, last_value = self.model(obs)
+            _, _, last_value = self.policy_apply(obs)
             _, returns, norm_adv = self.compute_gae(
                 traj["reward"], traj["value"], traj["done"], last_value)
         dataset = (traj["obs"], traj["action"], traj["log_prob"],

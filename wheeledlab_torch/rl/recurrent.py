@@ -185,10 +185,12 @@ class RecurrentPPO(PPO):
     clipped surrogate and value loss, adaptive-KL LR, global-norm clip,
     Adam), with minibatches that split the env axis and an update that
     backpropagates through the rollout window. It computes its cells in
-    bfloat16 whatever `compute_dtype` says, as the JAX learner does."""
+    bfloat16 whatever `compute_dtype` says, as the JAX learner does, and
+    ignores `fuse_input_layer`, as the JAX recurrent learner does."""
 
     state_cls = RecurrentTrainState
     obs_dtype = torch.float32
+    fused = False
 
     def build_model(self, generator):
         cfg, env = self.cfg, self.env

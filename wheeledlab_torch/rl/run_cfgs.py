@@ -10,7 +10,9 @@ from .ppo import PPOCfg
 from .runner import LogCfg, RunConfig, TrainCfg
 
 DRIFT_PPO = PPOCfg(activation="elu")
-# `fuse_input_layer` is a TPU matmul-tiling knob and a no-op in the port
+# the wide-observation tasks run the actor's and the critic's first layers
+# as one product (`networks.fused_actor_critic_apply`); drift keeps the
+# plain apply, whose bits its goldens pin
 ELEV_PPO = PPOCfg(activation="relu", fuse_input_layer=True)
 VISUAL_PPO = PPOCfg(activation="relu", fuse_input_layer=True)
 

@@ -58,13 +58,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-wall", type=float, default=1.0)
     p.add_argument("--full-ppo", action="store_true",
                    help="time the whole train iteration, not the rollout")
+    p.add_argument("--fuse-input-layer", action="store_true",
+                   help="fused actor+critic first-layer product "
+                        "(PPOCfg.fuse_input_layer); needs --full-ppo")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=None, help="also write the JSON line here")
     return p
 
 
 def main(argv=None):
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.fuse_input_layer and not args.full_ppo:
+        parser.error("--fuse-input-layer only affects the PPO update; "
+                     "pass --full-ppo with it")
     import torch
 
     from ..parallel import distributed
@@ -84,8 +91,10 @@ def main(argv=None):
                        shard=world.rank)
 
         if args.full_ppo:
-            learner = make_learner(env, PPOCfg(num_steps_per_env=args.rollout),
-                                   seed=0, world=world)
+            learner = make_learner(
+                env, PPOCfg(num_steps_per_env=args.rollout,
+                            fuse_input_layer=args.fuse_input_layer),
+                seed=0, world=world)
             state = learner.init_state()
 
             def fn(s):
@@ -126,6 +135,7 @@ def main(argv=None):
                 "num_envs": num_envs,
                 "envs_per_device": args.envs_per_device,
                 "mode": "full_ppo" if args.full_ppo else "rollout",
+                "fuse_input_layer": args.fuse_input_layer,
                 "rollout": args.rollout,
                 "device": describe(device),
                 "aggregate_env_steps_per_s": rate,
