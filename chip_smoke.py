@@ -96,6 +96,15 @@ printing its final line:
              agent.compute_dtype=bfloat16 beside float32, 3 iterations a
              run in turns (float32, bfloat16, bfloat16, float32; 384 K3
              launches each, obs stored in the run's dtype).
+   train_bench — `scripts.train_bench.main`, the entry point of the
+             full-budget runs (`docs/runs/*_h100/`), with their settings
+             (`--log-every 10 --no-checkpoints`, a target return no run
+             reaches) for 20 iterations of RSS_DRIFT_CONFIG and 20 of
+             F1TENTH_DRIFT_CONFIG at 1024 envs: metrics.jsonl,
+             run_config.json and result.json written, the result naming
+             this card with a finite return, K1 carrying every env step
+             (2560 launches a config) and no other kernel launched; one
+             JSON line a config with its steady ms per iteration.
 5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
              its play variant for 200 steps at 16 envs through the generic
              step, where K2 must carry every step (200 launches); and on the
@@ -1142,6 +1151,54 @@ def train_phase(device, logs):
     visual = train_run(device, logs, "RSS_VISUAL_CONFIG", "visual", 3208,
                        "K2", envs=VISUAL_ENVS, fused=True)
     return drift, krng, elev, visual
+
+
+# train_bench's short runs: (config, iterations); F1TENTH_DRIFT_CONFIG takes
+# the fused drift step too (K1), as its full-budget runs do
+TRAIN_BENCH_RUNS = (("RSS_DRIFT_CONFIG", 20), ("F1TENTH_DRIFT_CONFIG", 20))
+
+
+def train_bench_phase(card):
+    """`scripts.train_bench.main`, the entry point of the full-budget runs
+    (`docs/runs/*_h100/`), with their settings but 20 iterations a config
+    at 1024 envs: the run's three files must be written, its result must
+    name this card and hold a finite return, and K1 must carry every env
+    step (20 x 128 launches) and no other kernel launch. Returns {config:
+    (K1 launches, steady ms per iteration)}."""
+    import torch
+
+    from wheeledlab_torch.scripts import train_bench
+
+    phase("train_bench")
+    out = {}
+    with tempfile.TemporaryDirectory() as logs:
+        for config, iters in TRAIN_BENCH_RUNS:
+            run_name = config.lower()
+            reset_launches()
+            result = train_bench.main([
+                "--config", config, "--max-iterations", str(iters),
+                "--logs-dir", logs, "--run-name", run_name,
+                "--target-return", "1e9", "--log-every", "10",
+                "--no-checkpoints"])
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check_launches(f"train_bench {config}", launches,
+                           {**NO_LAUNCHES, "K1": iters * 128})
+            for name in ("metrics.jsonl", "run_config.json", "result.json"):
+                if not os.path.exists(os.path.join(logs, run_name, name)):
+                    raise AssertionError(f"train_bench {config}: no {name}")
+            if result["device"] != card:
+                raise AssertionError(f"train_bench {config}: device "
+                                     f"{result['device']!r}, card {card!r}")
+            if (result["iterations"] != iters
+                    or not math.isfinite(result["return"])):
+                raise AssertionError(f"train_bench {config}: {result}")
+            print(json.dumps({
+                "name": f"train_bench {config}", "iterations": iters,
+                "steady_ms_per_iteration": result["steady_ms_per_iteration"],
+                "return": result["return"], "card": card}), flush=True)
+            out[config] = (launches["K1"], result["steady_ms_per_iteration"])
+    return out
 
 
 def play_phase(logs):
@@ -2667,6 +2724,7 @@ def main():
         print(json.dumps({"name": "RSS_ELEV_CONFIG iteration ms, in turns",
                           **bf16_ms, "card": card}), flush=True)
         fused = fused_phase(device, logs, card)
+        bench = train_bench_phase(card)
         k2_launches = play_phase(logs)
         vis_play_launches = visual_play_phase(logs)
         rnn_play_launches = recurrent_play_phase(logs)
@@ -2705,6 +2763,10 @@ def main():
                     max_err, k("K1"), 1024, 16384,
                     registers.get("fused_drift"),
                     train_iteration_ms=drift_ms,
+                    **{f"train_bench_{c.lower()}_{key}": v
+                       for c, (n, ms) in bench.items()
+                       for key, v in (("launches", n),
+                                      ("steady_ms_per_iteration", ms))},
                     rnn_train_launches=rnn_launches,
                     rnn_train_iteration_ms=rnn_ms,
                     **{f"rnn_{k}": v for k, v in rnn_split.items()},

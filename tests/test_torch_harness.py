@@ -197,6 +197,96 @@ class TestTrainBench:
             assert json.load(f) == result
 
 
+class TestFullBudgetRuns:
+    def test_runs_train_bench_together(self, tmp_path, capsys, monkeypatch):
+        """`scripts/full_budget_runs.py` cut to 2 iterations at 16 envs on
+        the CPU: each run is a `train_bench` process with the reference
+        artifacts' settings, writes the three files, and is reported with
+        the runs it shared the host with and its resident memory."""
+        from wheeledlab_torch.scripts import full_budget_runs
+
+        command = full_budget_runs.command
+        monkeypatch.setattr(
+            full_budget_runs, "command",
+            lambda *a: command(*a) + ["--device", "cpu", "--num-envs", "16"])
+        monkeypatch.setattr(full_budget_runs, "build_kernels", lambda: None)
+        monkeypatch.setattr(full_budget_runs, "SAMPLE_S", 0.5)
+        names = ["rss_drift_h100", "f1tenth_drift_h100_seed3"]
+        rc = full_budget_runs.main([
+            "--max-iterations", "2", "--logs-dir", str(tmp_path),
+            "--only", *names])
+        assert rc == 0
+        lines = [json.loads(line) for line
+                 in capsys.readouterr().out.strip().splitlines()]
+        assert [line["run"] for line in lines] == names
+        for line, other in zip(lines, reversed(names)):
+            assert line["rc"] == 0 and line["shared_with"] == [other]
+            assert line["rss_mib_max"] >= line["rss_mib_last"] > 0
+            assert line["iterations"] == 2 and line["device"] == "cpu"
+            assert line["target_return"] == 1e6
+            for name in ("metrics.jsonl", "run_config.json", "result.json"):
+                assert (tmp_path / line["run"] / name).exists()
+            with open(tmp_path / line["run"] / "run_config.json") as f:
+                run = json.load(f)["run"]
+            assert run["train"]["log"]["log_every"] == 10
+            assert run["train"]["log"]["no_checkpoints"] is True
+        with open(tmp_path / "f1tenth_drift_h100_seed3" / "run_config.json") as f:
+            run = json.load(f)["run"]
+        assert run["task_name"] == "F1TenthDriftRL-v0"
+        assert run["train"]["seed"] == 3
+        with open(tmp_path / "full_budget_samples.jsonl") as f:
+            samples = [json.loads(line) for line in f]
+        assert samples and set(samples[0]["rss_mib"]) == set(names)
+
+    def test_runs_on_the_card(self):
+        """Without the test's CPU flags every run is a `train_bench` on its
+        default device, the card, at the full budget."""
+        from wheeledlab_torch.scripts import full_budget_runs
+
+        args = full_budget_runs.build_parser().parse_args([])
+        for name, config, seed, iterations in full_budget_runs.RUNS:
+            cmd = full_budget_runs.command(args, name, config, seed,
+                                           iterations)
+            assert "--device" not in cmd and "--num-envs" not in cmd
+            assert cmd[cmd.index("--max-iterations") + 1] == str(iterations)
+
+    def test_unknown_run_refused(self, tmp_path):
+        from wheeledlab_torch.scripts import full_budget_runs
+
+        with pytest.raises(SystemExit):
+            full_budget_runs.main(["--logs-dir", str(tmp_path),
+                                   "--only", "no_such_run"])
+
+
+class TestRunSummary:
+    def test_reference_drift_run(self, capsys):
+        """`scripts/run_summary.py` on the reference's committed seed-0
+        drift run, against the numbers read straight from its files."""
+        from wheeledlab_torch.scripts import run_summary
+
+        run_dir = os.path.join(os.path.dirname(__file__), "..", "docs",
+                               "runs", "rss_drift_tpu")
+        (line,) = run_summary.main([run_dir])
+        assert json.loads(capsys.readouterr().out) == json.loads(
+            json.dumps(line))
+        rows = read_metrics(os.path.dirname(run_dir), "rss_drift_tpu")
+        ret = np.array([r["episode/return"] for r in rows])
+        assert line["run"] == "rss_drift_tpu"
+        assert line["iterations"] == 5000
+        assert line["last10_return"] == pytest.approx(ret[-10:].mean())
+        assert line["first3_return"] == pytest.approx(ret[:3].mean())
+        assert set(line["at"]) == set(run_summary.AT)
+        assert line["at"][5000]["episode/return"] == rows[-1]["episode/return"]
+        first = int(np.argmax(ret >= 700))
+        assert line["bar_iteration"] == rows[first]["iteration"]
+        assert line["bar_wall_s"] == rows[first]["perf/wall_s"]
+        last = [r for r in rows if r["iteration"] > 4000]
+        assert line["last1000_lr_max"] == max(r["lr"] for r in last)
+        assert 0.0 <= line["last1000_lr_at_max_share"] <= 1.0
+        assert line["nonfinite_returns"] == 0
+        assert line["steady_ms_per_iteration"] == 10.29
+
+
 class TestProfiling:
     def test_phase_timer_matches_jax(self):
         """The same phases give the same keys, counts and fractions."""
