@@ -105,6 +105,16 @@ printing its final line:
              this card with a finite return, K1 carrying every env step
              (2560 launches a config) and no other kernel launched; one
              JSON line a config with its steady ms per iteration.
+   resume  — the full-budget runs' resume and stitch path
+             (`scripts.full_budget_runs`): RSS_ELEV_CONFIG at 1024 envs,
+             4 iterations straight, then 2 and 2 more resumed from the
+             first segment's checkpoint, both stitched by
+             `full_budget_runs.stitch`: the stitched rows must equal the
+             straight run's bit for bit in every metric but `perf/*` and
+             `time/*`, K3 carrying every env step (1024 launches) and no
+             other kernel launching; the play CLI on the resumed run, 50
+             steps at 64 envs (50 K3 launches); one JSON line with the
+             straight run's ms per iteration, alone on the card.
 5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
              its play variant for 200 steps at 16 envs through the generic
              step, where K2 must carry every step (200 launches); and on the
@@ -247,8 +257,13 @@ K2_REPLACES = "wheeledlab_tpu/ops/pallas_substep.py:53"
 K3_REPLACES = "wheeledlab_tpu/ops/pallas_substep_hf.py:60"
 
 
+START = time.time()
+
+
 def phase(name):
-    print(f"=== {name}", flush=True)
+    """Heads a phase's output with the seconds since the script started, so
+    a run's log shows what each phase costs."""
+    print(f"=== {name} (at {time.time() - START:.1f} s)", flush=True)
 
 
 def device_phase():
@@ -1199,6 +1214,102 @@ def train_bench_phase(card):
                 "return": result["return"], "card": card}), flush=True)
             out[config] = (launches["K1"], result["steady_ms_per_iteration"])
     return out
+
+
+RESUME_ITERS = 4      # the straight run; the split one stops half-way
+RESUME_PLAY_STEPS, RESUME_PLAY_ENVS = 50, 64
+
+
+def resume_phase(device, card):
+    """RSS_ELEV_CONFIG at 1024 envs through the full-budget runs' resume
+    and stitch path (`scripts/full_budget_runs.py`): 4 iterations straight,
+    then 2 and 2 more resumed from the first segment's checkpoint
+    (`train.load_run`), each run stitched by `full_budget_runs.stitch`. The
+    stitched rows must equal the straight run's bit for bit in every metric
+    but `perf/*` and `time/*`; K3 must carry every env step (8 x 128
+    launches) and no other kernel launch. Then the play CLI on the resumed
+    run, 50 steps at 64 envs (50 K3 launches). Returns (K3 launches of the
+    runs, of the play, iteration ms of the straight run)."""
+    import torch
+
+    import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.cli import play
+    from wheeledlab_torch.rl.runner import train
+    from wheeledlab_torch.scripts import full_budget_runs as fbr
+    from wheeledlab_torch.utils.config import RUN_CONFIGS, override
+
+    phase("resume")
+    run = next(r for r in fbr.RESUMABLE if r[0] == "rss_elev_h100")
+    half = RESUME_ITERS // 2
+
+    def segment(logs, k, stop, load_run=None):
+        cfg = RUN_CONFIGS.get(run[1])
+        for key, v in (("train.num_iterations", RESUME_ITERS),
+                       ("train.target_return", run[4]),
+                       ("train.log.logs_dir", logs),
+                       ("train.log.run_name", fbr.segment_dir(run[0], k)),
+                       ("train.log.log_every", 1),
+                       ("train.log.checkpoint_every", half),
+                       ("device", device)):
+            cfg = override(cfg, key, v)
+        if load_run is not None:
+            cfg = override(cfg, "train.load_run", load_run)
+        t0 = time.time()
+        state, _ = train(cfg, max_iterations=stop, verbose=False)
+        fbr.record_segment(logs, run[0], {
+            "segment": k, "run_dir": fbr.segment_dir(run[0], k),
+            "load_run": load_run, "from_iteration": half if load_run else 0,
+            "to_iteration": state.iteration, "checkpoint": state.iteration,
+            "rc": 0, "stopped": stop < RESUME_ITERS,
+            "completed": stop == RESUME_ITERS, "wall_s": time.time() - t0,
+            "shared_with": [], "device": card})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, split = (os.path.join(tmp, d) for d in ("straight", "split"))
+        reset_launches()
+        segment(straight, 0, RESUME_ITERS)
+        segment(split, 0, half)
+        segment(split, 1, RESUME_ITERS, load_run=fbr.segment_dir(run[0], 0))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_launches("resume", launches,
+                       {**NO_LAUNCHES, "K3": 2 * RESUME_ITERS * 128})
+        want = fbr.stitch(straight, run, os.path.join(tmp, "a"))
+        got = fbr.stitch(split, run, os.path.join(tmp, "b"))
+        rows = {}
+        for d in ("a", "b"):
+            with open(os.path.join(tmp, d, run[0], "metrics.jsonl")) as f:
+                rows[d] = [json.loads(line) for line in f]
+        public = lambda r: {k: v for k, v in r.items()
+                            if not k.startswith(("perf/", "time/"))}
+        differ = [(a["iteration"], k, a[k], b.get(k))
+                  for a, b in zip(rows["a"], rows["b"])
+                  for k in public(a) if public(b).get(k) != a[k]]
+        if differ or len(rows["a"]) != len(rows["b"]):
+            raise AssertionError(f"resume: the stitched run differs from "
+                                 f"the straight one: {differ[:8]}")
+        if [len(want["segments"]), len(got["segments"])] != [1, 2]:
+            raise AssertionError(f"resume: segments {want} {got}")
+        for row in rows["b"]:
+            if not math.isfinite(row["loss/total"]):
+                raise AssertionError(f"resume: loss {row}")
+        reset_launches()
+        play.main(["--run", fbr.segment_dir(run[0], 1), "--logs-dir", split,
+                   "--steps", str(RESUME_PLAY_STEPS), "--num-envs",
+                   str(RESUME_PLAY_ENVS), "--device", device])
+        torch.cuda.synchronize()
+        play_launches = read_launches()
+        check_launches("resume play", play_launches,
+                       {**NO_LAUNCHES, "K3": RESUME_PLAY_STEPS})
+        iter_ms = iteration_ms(rows["a"])
+    print(json.dumps({
+        "name": "resume RSS_ELEV_CONFIG", "envs": 1024,
+        "iterations": RESUME_ITERS, "segments": [half, RESUME_ITERS - half],
+        "stitched_equal_bit_for_bit": True,
+        "ms_per_iteration": iter_ms, "alone_on_card": True,
+        "k3_launches": launches["K3"], "play_k3_launches": play_launches["K3"],
+        "card": card}), flush=True)
+    return launches["K3"], play_launches["K3"], iter_ms
 
 
 def play_phase(logs):
@@ -2725,6 +2836,7 @@ def main():
                           **bf16_ms, "card": card}), flush=True)
         fused = fused_phase(device, logs, card)
         bench = train_bench_phase(card)
+        resume = resume_phase(device, card)
         k2_launches = play_phase(logs)
         vis_play_launches = visual_play_phase(logs)
         rnn_play_launches = recurrent_play_phase(logs)
@@ -2808,6 +2920,9 @@ def main():
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
                     registers.get("physics_step_hf"),
                     train_iteration_ms=elev_ms,
+                    resume_launches=resume[0],
+                    resume_play_launches=resume[1],
+                    resume_iteration_ms=resume[2],
                     bf16_train_iteration_ms=bf16_ms["bfloat16"],
                     elev_fused=fused["RSS_ELEV_CONFIG"],
                     f32_turns_train_iteration_ms=bf16_ms["float32"],

@@ -287,6 +287,63 @@ class TestRunSummary:
         assert line["steady_ms_per_iteration"] == 10.29
 
 
+    def test_reference_elevation_stall(self, capsys):
+        """The stall indicators and the bars' channels on the reference's
+        seed-0 elevation run, against its rows read directly: the first
+        log point with |KL| < STALL_KL, the first after it that begins
+        BACK_POINTS log points with KL >= BACK_KL, and the first-3 and
+        last-10 ground height."""
+        from wheeledlab_torch.scripts import run_summary
+
+        run_dir = os.path.join(os.path.dirname(__file__), "..", "docs",
+                               "runs", "rss_elev_tpu")
+        (line,) = run_summary.main([run_dir, "--bar", "80000"])
+        capsys.readouterr()
+        rows = read_metrics(os.path.dirname(run_dir), "rss_elev_tpu")
+        kl = np.array([r["loss/kl"] for r in rows])
+        its = np.array([r["iteration"] for r in rows])
+        stall = int(np.argmax(np.abs(kl) < run_summary.STALL_KL))
+        ok = kl >= run_summary.BACK_KL
+        n = run_summary.BACK_POINTS
+        back = next(i for i in range(stall + 1, len(rows))
+                    if ok[i:i + n].all())
+        assert line["stall_iteration"] == its[stall]
+        assert line["kl_back_iteration"] == its[back]
+        assert its[stall] < its[back] < 1000
+        height = [r["metrics/ground_height"] for r in rows]
+        assert line["first3_ground_height"] == pytest.approx(
+            np.mean(height[:3]))
+        assert line["last10_ground_height"] == pytest.approx(
+            np.mean(height[-10:]))
+        assert "first3_slip_deg" not in line
+        assert set(line["at"]) == {a for a in run_summary.AT if a <= 4000}
+
+    @pytest.mark.parametrize("bar, want", [(1.5, 4.0), (2.5, 46.0 + 3.0),
+                                           (3.5, 46.0 + 27.0 + 2.0)])
+    def test_stitched_bar_wall_s(self, tmp_path, capsys, bar, want):
+        """On a run stitched from segments, whose `perf/wall_s` restarts in
+        each, the seconds to the bar add the training seconds of every
+        segment before the one that logged the bar's row."""
+        from wheeledlab_torch.scripts import run_summary
+
+        rows = [(10, 1.0, 2.0), (20, 2.0, 4.0),     # segment 0, to 20
+                (30, 3.0, 3.0),                     # segment 1, from 20
+                (40, 4.0, 2.0), (50, 5.0, 5.0)]     # segment 2, from 30
+        (tmp_path / "metrics.jsonl").write_text("".join(
+            json.dumps({"iteration": it, "episode/return": ret,
+                        "perf/wall_s": wall, "loss/kl": 1e-3, "lr": 1e-3})
+            + "\n" for it, ret, wall in rows))
+        (tmp_path / "run_config.json").write_text(json.dumps(
+            {"run": {"agent": {"max_lr": 1e-2}}}))
+        (tmp_path / "result.json").write_text(json.dumps({"segments": [
+            {"iterations": [0, 20], "train_s": 46.0},
+            {"iterations": [20, 30], "train_s": 27.0},
+            {"iterations": [30, 50], "train_s": 5.0}]}))
+        (line,) = run_summary.main([str(tmp_path), "--bar", str(bar)])
+        capsys.readouterr()
+        assert line["bar_wall_s"] == want
+
+
 class TestProfiling:
     def test_phase_timer_matches_jax(self):
         """The same phases give the same keys, counts and fractions."""

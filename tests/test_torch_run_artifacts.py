@@ -1,10 +1,13 @@
 """The port's committed full-budget runs (`docs/runs/*_h100/`), held to the
 bars `tests/test_run_artifacts.py` holds the JAX package's runs to.
 
-Each run was made on an NVIDIA H100 by `python -m
-wheeledlab_torch.scripts.train_bench` at the reference's budget and
-settings (`--target-return 1e6 --log-every 10 --no-checkpoints`), all seven
-started together by `python -m wheeledlab_torch.scripts.full_budget_runs`.
+Each run was made on an NVIDIA H100 at the reference's budget and settings
+by `python -m wheeledlab_torch.scripts.full_budget_runs`: the drift runs as
+one `train_bench` process each (`--target-return 1e6 --log-every 10
+--no-checkpoints`), all seven started together; the elevation, goal-seeking
+elevation, visual and recurrent runs as chains of `cli.train` segments
+resumed from their checkpoints across calls to the card and stitched into
+one run (`--stitch`), whose `result.json` lists the segments.
 The tests read JSON only: no device, no JAX. A run whose `metrics.jsonl` is
 missing is skipped, as `load_run` does. Torch seeds do not reproduce JAX's
 threefry streams, so seed k here is not the reference's seed k.
@@ -23,10 +26,23 @@ RUNS_DIR = os.path.join(os.path.dirname(__file__), "..", "docs", "runs")
 DRIFT_RUNS = ("rss_drift_h100", "rss_drift_h100_seed1")
 F1TENTH_SEEDS = range(5)
 F1TENTH_RUNS = tuple(f"f1tenth_drift_h100_seed{s}" for s in F1TENTH_SEEDS)
+ELEV_RUNS = ("rss_elev_h100", "rss_elev_h100_seed1")
+# the runs made in segments: name -> (iterations, envs, target return)
+RESUMED = {"rss_elev_h100": (4000, 1024, 1e6),
+           "rss_elev_h100_seed1": (4000, 1024, 1e6),
+           "rss_elev_goal_h100": (1500, 1024, 1e7),
+           "rss_visual_h100": (4000, 512, 1e7),
+           "rss_drift_rnn_h100": (1500, 1024, 1e6)}
+RESUMED_RUNS = tuple(RESUMED)
 # each port run and the reference artifact it repeats
 REFERENCE = {"rss_drift_h100": "rss_drift_tpu",
              "rss_drift_h100_seed1": "rss_drift_tpu_seed1",
-             **{name: "f1tenth_drift_tpu" for name in F1TENTH_RUNS}}
+             **{name: "f1tenth_drift_tpu" for name in F1TENTH_RUNS},
+             "rss_elev_h100": "rss_elev_tpu",
+             "rss_elev_h100_seed1": "rss_elev_tpu_seed1",
+             "rss_elev_goal_h100": "rss_elev_goal_tpu",
+             "rss_visual_h100": "rss_visual_tpu",
+             "rss_drift_rnn_h100": "rss_drift_rnn_tpu"}
 # the bars' budgets: 1024 envs x 128 steps x 5000 or 1500 iterations
 DRIFT_ENV_STEPS = 1024 * 128 * 5000
 F1TENTH_ENV_STEPS = 1024 * 128 * 1500
@@ -96,7 +112,8 @@ def test_drift_learned_to_drift(name):
     assert result["target_return"] >= 1e6, result
 
 
-@pytest.mark.parametrize("name", DRIFT_RUNS + F1TENTH_RUNS)
+@pytest.mark.parametrize("name",
+                         DRIFT_RUNS + F1TENTH_RUNS + RESUMED_RUNS)
 def test_result_names_the_card(name):
     """In place of the reference's wall-clock north star (< 600 s on a
     TPU, tests/test_run_artifacts.py:72-79), which is no target of the
@@ -140,6 +157,147 @@ def test_f1tenth_seed_drifts(seed):
     assert met, got
 
 
+def load_play(name):
+    path = os.path.join(RUNS_DIR, name, "play_metrics.json")
+    if not os.path.exists(path):
+        pytest.skip(f"no committed play metrics of {name}")
+    with open(path) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", ELEV_RUNS)
+def test_elevation_learns_to_climb(name):
+    """RSS_ELEV_CONFIG at 1024 envs x 4000 iterations, seeds 0 and 1: the
+    bars of `TestElevationArtifact` (tests/test_run_artifacts.py:136-160):
+    the return rises by a fifth, and the ground under the robot ends above
+    0.6 m, at seed 0 also a quarter above where it began."""
+    rows, _ = load_run(name)
+    ret = series(rows, "episode/return")
+    height = series(rows, "metrics/ground_height")
+    assert len(ret) >= 100
+    assert ret[-10:].mean() > 1.2 * ret[:3].mean(), (ret[:3].mean(),
+                                                     ret[-10:].mean())
+    if name == "rss_elev_h100":
+        assert height[-10:].mean() > 1.25 * height[:3].mean(), (
+            height[:3].mean(), height[-10:].mean())
+    assert height[-10:].mean() > 0.6, height[-10:].mean()
+
+
+def test_elevation_goal_seeking():
+    """Seed 0, as the reference's `test_elevation_goal_seeking`
+    (tests/test_run_artifacts.py:162-180): the distance to the goal falls,
+    the goal-velocity reward rises by a tenth, and the share of episodes
+    ended at the goal lies in the measured 0.4-2 % band."""
+    rows, _ = load_run("rss_elev_h100")
+    goal_dist = series(rows, "metrics/goal_dist")
+    at_goal = series(rows, "done/at_goal")
+    vel_goal = series(rows, "rew/vel_towards_goal")
+    assert goal_dist[-10:].mean() < goal_dist[:3].mean(), (
+        goal_dist[:3].mean(), goal_dist[-10:].mean())
+    assert vel_goal[-10:].mean() > 1.1 * vel_goal[:3].mean(), (
+        vel_goal[:3].mean(), vel_goal[-10:].mean())
+    assert 0.004 < at_goal[-10:].mean() < 0.02, at_goal[-10:].mean()
+
+
+def test_elevation_play_metrics():
+    """`cli.play` of the seed-0 run (500 steps, 64 envs), as the
+    reference's `test_elevation_play_metrics_committed`
+    (tests/test_run_artifacts.py:182-193): it moves at real speed and
+    reaches goals at a chance-level rate."""
+    m = load_play("rss_elev_h100")
+    assert m["speed_mean"] > 1.0, m
+    assert 0.0 <= m["goal_reach_frac"] < 0.10, m
+
+
+def test_goal_variant_reaches_goals():
+    """ELEV_GOAL_CONFIG at 1024 envs x 1500 iterations: the bars of
+    `test_goal_variant_reaches_goals` (tests/test_run_artifacts.py:
+    203-212)."""
+    rows, _ = load_run("rss_elev_goal_h100")
+    at_goal = series(rows, "done/at_goal")
+    goal_dist = series(rows, "metrics/goal_dist")
+    assert at_goal[-10:].mean() > 0.15, at_goal[-10:].mean()
+    assert at_goal[-10:].mean() > 3.0 * max(at_goal[:3].mean(), 1e-3)
+    assert goal_dist[-10:].mean() < 0.8 * goal_dist[:3].mean(), (
+        goal_dist[:3].mean(), goal_dist[-10:].mean())
+
+
+def test_goal_variant_play_reaches_goals():
+    """`cli.play` of the goal-seeking run (500 steps, 64 envs): more than a
+    fifth of the envs reach a goal (tests/test_run_artifacts.py:214-223)."""
+    m = load_play("rss_elev_goal_h100")
+    assert m["goal_reach_frac"] > 0.20, m
+
+
+def test_visual_stays_on_corridors():
+    """RSS_VISUAL_CONFIG at 512 envs x 4000 iterations: the bars of
+    `TestVisualArtifact` (tests/test_run_artifacts.py:292-306)."""
+    rows, _ = load_run("rss_visual_h100")
+    trav = series(rows, "metrics/traversable_frac")
+    fwd = series(rows, "metrics/forward_vel")
+    ret = series(rows, "episode/return")
+    assert len(ret) >= 100
+    assert ret[-10:].mean() > ret[:3].mean()
+    assert trav[-10:].mean() > trav[:3].mean()
+    assert trav[-10:].mean() > 0.5, trav[-10:].mean()
+    assert fwd[-10:].mean() > 0.3, fwd[-10:].mean()
+
+
+def test_visual_played():
+    """`cli.play` of the visual run (500 steps, 64 envs): its reference
+    committed play metrics, which no bar reads; the port's are finite, the
+    car moving."""
+    m = load_play("rss_visual_h100")
+    assert all(math.isfinite(v) for v in m.values()), m
+    assert m["speed_mean"] > 0.0, m
+
+
+def test_recurrent_drift_learns():
+    """RSS_DRIFT_RNN_CONFIG at 1024 envs x 1500 iterations: the bars of
+    `TestRecurrentDriftArtifact` (tests/test_run_artifacts.py:81-98)."""
+    rows, _ = load_run("rss_drift_rnn_h100")
+    ret = series(rows, "episode/return")
+    slip = series(rows, "metrics/slip_deg")
+    speed = series(rows, "metrics/speed")
+    assert len(ret) >= 100
+    assert ret[-10:].mean() > 900, ret[-10:].mean()
+    assert ret[-10:].mean() > 2.0 * ret[:3].mean()
+    assert 13.0 <= slip[-10:].mean() <= 25.0, slip[-10:].mean()
+    assert speed[-10:].mean() >= 1.2, speed[-10:].mean()
+
+
+@pytest.mark.parametrize("name", RESUMED_RUNS)
+def test_resumed_run_is_whole(name):
+    """Each run made in segments ran its reference's full budget (no early
+    stop at the target return), logs every 10th iteration once, and its
+    result lists segments on the card that pick up where a checkpoint
+    left off, the first from iteration 0, the last to the budget. In place
+    of the reference's speed bar (`steady_env_steps_per_s > 4e6` on a
+    TPU, tests/test_run_artifacts.py:160), which is no target of the
+    port: the steady rate is finite and positive."""
+    iterations, envs, target = RESUMED[name]
+    rows, result = load_run(name)
+    assert [r["iteration"] for r in rows] == list(
+        range(10, iterations + 1, 10))
+    assert result is not None
+    assert result["iterations"] == iterations, result
+    assert result["env_steps"] == iterations * envs * 128, result
+    assert result["target_return"] == target, result
+    rate = result["steady_env_steps_per_s"]
+    assert math.isfinite(rate) and rate > 0, result
+    segments = result["segments"]
+    assert segments[0]["iterations"][0] == 0
+    assert segments[-1]["iterations"][1] == iterations
+    for before, seg in zip(segments, segments[1:]):
+        assert seg["iterations"][0] == before["checkpoint"]
+        assert seg["iterations"][0] <= before["iterations"][1]
+    for seg in segments:
+        assert CARD.match(seg["device"]), seg
+        assert seg["wall_s"] > 0
+    assert result["value"] == pytest.approx(
+        sum(seg["wall_s"] for seg in segments))
+
+
 # Settings the port's runs may differ in from the reference artifacts:
 # where a run was written and its name; `device`, the port's own; the
 # learner's `compute_dtype` and `fuse_input_layer` and the train config's
@@ -149,6 +307,10 @@ NOT_COMPARED = {"run.train.log.logs_dir", "run.train.log.run_name",
                 "run.device"}
 REFERENCE_MAY_LACK = {"run.agent.compute_dtype", "run.agent.fuse_input_layer",
                       "run.train.aot_warm_start"}
+# The one setting named as a deliberate difference: the reference made
+# these two runs without checkpoints; the port's runs span several calls
+# to the card and resume from their checkpoints
+CHECKPOINTED = {"rss_drift_rnn_h100", "rss_elev_h100_seed1"}
 
 
 def flatten(tree, prefix=""):
@@ -161,25 +323,33 @@ def flatten(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("name", DRIFT_RUNS + F1TENTH_RUNS)
+@pytest.mark.parametrize("name",
+                         DRIFT_RUNS + F1TENTH_RUNS + RESUMED_RUNS)
 def test_run_settings_match_reference(name):
     """Each run's `run_config.json` equals its reference artifact's field
-    for field (the task, `num_envs`, the whole `agent` block, the budget,
-    the seed, the target return, the log settings), apart from the fields
-    named above and, for F1Tenth, the seed: the reference committed seed 4
-    of its sweep, the port commits all five."""
+    for field (the task, `num_envs`, the whole `agent` block with
+    elevation's and visual's fused first layer, the env overrides, the
+    budget, the seed, the target return, the log settings), apart from the
+    fields named above; for F1Tenth, the seed: the reference committed seed
+    4 of its sweep, the port commits all five; and `no_checkpoints` of the
+    runs in CHECKPOINTED."""
     port = flatten(load_config(name))
     ref = flatten(load_config(REFERENCE[name]))
     skip = set(NOT_COMPARED)
     if name in F1TENTH_RUNS:
         skip.add("run.train.seed")
         assert port["run.train.seed"] == int(name[-1])
+    if name in CHECKPOINTED:
+        skip.add("run.train.log.no_checkpoints")
+        assert ref["run.train.log.no_checkpoints"] is True
+        assert port["run.train.log.no_checkpoints"] is False
     assert port["run.device"] == "cuda"
     assert set(ref) - set(port) == set(), sorted(set(ref) - set(port))
     extra = set(port) - set(ref) - skip
     assert extra <= REFERENCE_MAY_LACK, sorted(extra - REFERENCE_MAY_LACK)
     assert port.get("run.agent.compute_dtype", "float32") == "float32"
-    assert port.get("run.agent.fuse_input_layer", False) is False
+    assert port.get("run.agent.fuse_input_layer", False) is ref.get(
+        "run.agent.fuse_input_layer", False)
     assert port.get("run.train.aot_warm_start", "auto") == "auto"
     differ = {key: (port[key], ref[key]) for key in set(ref) - skip
               if port[key] != ref[key]}

@@ -503,7 +503,9 @@ class PPO:
     def load_state_dict(self, sd: dict):
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
-        self.generator.set_state(sd["generator"])
+        # a generator's state is a CPU byte tensor, wherever the
+        # checkpoint was mapped to
+        self.generator.set_state(sd["generator"].cpu())
 
 
 def make_learner(env: WheeledEnv, cfg: PPOCfg, seed: int = 0,

@@ -291,8 +291,8 @@ def restore_checkpoint(run_dir: str, step: int, learner,
     learner.load_state_dict(ck["learner"])
     if world.rank > 0:
         ck = _load(checkpoint_path(run_dir, step, world.rank), dev, world)
-        learner.generator.set_state(ck["generator"])
-    learner.env.generator.set_state(ck["env_generator"])
+        learner.generator.set_state(ck["generator"].cpu())
+    learner.env.generator.set_state(ck["env_generator"].cpu())
     return learner.state_cls(
         env_state=EnvState.from_dict(ck["env_state"]), obs=ck["obs"],
         iteration=ck["iteration"], **{k: ck[k] for k in _CARRY if k in ck})

@@ -5,11 +5,16 @@ run to set them side by side.
     python -m wheeledlab_torch.scripts.run_summary docs/runs/rss_drift_h100 \
         docs/runs/rss_drift_tpu [--bar 700]
 
-One JSON line a run: the first-3 and last-10 means of the return, slip and
-speed (what `tests/test_run_artifacts.py` holds runs to); the return,
+One JSON line a run: the first-3 and last-10 means of the channels
+`tests/test_run_artifacts.py` holds runs to (return, slip, speed, ground
+height, goal distance and velocity, goal terminations, traversable share,
+forward velocity, those the task logs); the return,
 `loss/kl`, `lr` and `loss/value` at the iterations `AT`; the first
-logged iteration whose return reaches `--bar` and the wall seconds to it;
-and over the last 1000 iterations the median KL, the share of log points
+logged iteration whose return reaches `--bar` and the training seconds to
+it (on a run stitched from segments, those of the segments before it too:
+`perf/wall_s` restarts in each);
+the first log point of a stall (|KL| < STALL_KL) and the first after it
+that begins BACK_POINTS log points with the KL back (>= BACK_KL); and over the last 1000 iterations the median KL, the share of log points
 with the LR at the learner's `max_lr` and the LR's range, with the count
 of non-finite returns.
 """
@@ -24,7 +29,16 @@ import statistics
 import sys
 
 AT_KEYS = ("episode/return", "loss/kl", "lr", "loss/value")
-AT = (10, 100, 500, 1000, 1500, 5000)
+AT = (10, 100, 500, 1000, 1500, 2000, 4000, 5000)
+# the channels the reference's bars read (tests/test_run_artifacts.py),
+# where the task logs them
+FIRST_LAST = ("episode/return", "metrics/slip_deg", "metrics/speed",
+              "metrics/ground_height", "metrics/goal_dist",
+              "rew/vel_towards_goal", "done/at_goal",
+              "metrics/traversable_frac", "metrics/forward_vel")
+STALL_KL = 1e-5   # |KL| below this: the policy has stopped moving
+BACK_KL = 1e-4    # KL at or above this after a stall, at BACK_POINTS log
+BACK_POINTS = 10  # points in a row: the policy moves again
 
 
 def load(run_dir):
@@ -40,6 +54,17 @@ def load(run_dir):
     return rows, config, result
 
 
+def wall_to(row, result):
+    """Training seconds from the run's start to `row`. A stitched run's
+    `result.json` lists its segments, and `perf/wall_s` restarts in each:
+    the row comes from the last segment that began before it, and every
+    segment before that adds its own training seconds."""
+    segments = (result or {}).get("segments", [])
+    k = max((i for i, s in enumerate(segments)
+             if s["iterations"][0] < row["iteration"]), default=0)
+    return sum(s["train_s"] for s in segments[:k]) + row["perf/wall_s"]
+
+
 def mean(rows, key):
     values = [r[key] for r in rows if key in r]
     return sum(values) / len(values) if values else None
@@ -50,20 +75,25 @@ def summary(run_dir, bar):
     max_lr = config["run"]["agent"]["max_lr"]
     last = [r for r in rows if r["iteration"] > rows[-1]["iteration"] - 1000]
     reached = next((r for r in rows if r["episode/return"] >= bar), None)
+    stall = next((r for r in rows if abs(r["loss/kl"]) < STALL_KL), None)
+    after = [r for r in rows if stall and r["iteration"] > stall["iteration"]]
+    back = next((r for i, r in enumerate(after)
+                 if all(x["loss/kl"] >= BACK_KL
+                        for x in after[i:i + BACK_POINTS])), None)
     out = {
         "run": os.path.basename(os.path.normpath(run_dir)),
         "iterations": rows[-1]["iteration"],
-        **{f"first3_{k}": mean(rows[:3], f"{p}/{k}") for p, k in (
-            ("episode", "return"), ("metrics", "slip_deg"),
-            ("metrics", "speed"))},
-        **{f"last10_{k}": mean(rows[-10:], f"{p}/{k}") for p, k in (
-            ("episode", "return"), ("metrics", "slip_deg"),
-            ("metrics", "speed"))},
+        **{f"first3_{k.split('/')[1]}": mean(rows[:3], k)
+           for k in FIRST_LAST if k in rows[0]},
+        **{f"last10_{k.split('/')[1]}": mean(rows[-10:], k)
+           for k in FIRST_LAST if k in rows[0]},
         "at": {r["iteration"]: {k: r.get(k) for k in AT_KEYS}
                for r in rows if r["iteration"] in AT},
         "bar": bar,
         "bar_iteration": reached and reached["iteration"],
-        "bar_wall_s": reached and reached["perf/wall_s"],
+        "bar_wall_s": reached and wall_to(reached, result),
+        "stall_iteration": stall and stall["iteration"],
+        "kl_back_iteration": back and back["iteration"],
         "last1000_kl_median": statistics.median(r["loss/kl"] for r in last),
         "last1000_lr_at_max_share": sum(
             r["lr"] >= max_lr * (1 - 1e-6) for r in last) / len(last),
