@@ -106,15 +106,18 @@ printing its final line:
              (2560 launches a config) and no other kernel launched; one
              JSON line a config with its steady ms per iteration.
    resume  — the full-budget runs' resume and stitch path
-             (`scripts.full_budget_runs`): RSS_ELEV_CONFIG at 1024 envs,
-             4 iterations straight, then 2 and 2 more resumed from the
-             first segment's checkpoint, both stitched by
+             (`scripts.full_budget_runs`) for each resumable config:
+             RSS_ELEV_CONFIG (1024 envs, K3), RSS_DRIFT_RNN_CONFIG (1024,
+             K1; the LSTM carry restored) and RSS_VISUAL_CONFIG (512, K2),
+             each 4 iterations straight, then 2 and 2 more resumed from
+             the first segment's checkpoint, both stitched by
              `full_budget_runs.stitch`: the stitched rows must equal the
              straight run's bit for bit in every metric but `perf/*` and
-             `time/*`, K3 carrying every env step (1024 launches) and no
-             other kernel launching; the play CLI on the resumed run, 50
-             steps at 64 envs (50 K3 launches); one JSON line with the
-             straight run's ms per iteration, alone on the card.
+             `time/*`, the config's kernel carrying every env step (1024
+             launches) and no other kernel launching; the play CLI on the
+             resumed run, 50 steps at 64 envs (50 K3 launches for
+             elevation, 50 K2 for the others); one JSON line a config
+             with the straight run's ms per iteration, alone on the card.
 5. play    — `wheeledlab_torch.cli.play.main` on the drift run just trained:
              its play variant for 200 steps at 16 envs through the generic
              step, where K2 must carry every step (200 launches); and on the
@@ -1218,18 +1221,25 @@ def train_bench_phase(card):
 
 RESUME_ITERS = 4      # the straight run; the split one stops half-way
 RESUME_PLAY_STEPS, RESUME_PLAY_ENVS = 50, 64
+# the resumable runs of `scripts/full_budget_runs.py` held by resume_phase:
+# (run, kernel of its training steps, kernel of its play steps); recurrent
+# drift plays through the generic step (K2), as recurrent_play_phase does
+RESUME_RUNS = (("rss_elev_h100", "K3", "K3"),
+               ("rss_drift_rnn_h100", "K1", "K2"),
+               ("rss_visual_h100", "K2", "K2"))
 
 
-def resume_phase(device, card):
-    """RSS_ELEV_CONFIG at 1024 envs through the full-budget runs' resume
-    and stitch path (`scripts/full_budget_runs.py`): 4 iterations straight,
-    then 2 and 2 more resumed from the first segment's checkpoint
-    (`train.load_run`), each run stitched by `full_budget_runs.stitch`. The
-    stitched rows must equal the straight run's bit for bit in every metric
-    but `perf/*` and `time/*`; K3 must carry every env step (8 x 128
-    launches) and no other kernel launch. Then the play CLI on the resumed
-    run, 50 steps at 64 envs (50 K3 launches). Returns (K3 launches of the
-    runs, of the play, iteration ms of the straight run)."""
+def resume_run(device, card, name, kernel, play_kernel):
+    """One resumable run at its config's width through the full-budget
+    runs' resume and stitch path (`scripts/full_budget_runs.py`): 4
+    iterations straight, then 2 and 2 more resumed from the first
+    segment's checkpoint (`train.load_run`), each run stitched by
+    `full_budget_runs.stitch`. The stitched rows must equal the straight
+    run's bit for bit in every metric but `perf/*` and `time/*`; `kernel`
+    must carry every env step (8 x 128 launches) and no other kernel
+    launch. Then the play CLI on the resumed run, 50 steps at 64 envs
+    through `play_kernel`. Returns (launches of the runs, of the play,
+    iteration ms of the straight run)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
@@ -1238,16 +1248,16 @@ def resume_phase(device, card):
     from wheeledlab_torch.scripts import full_budget_runs as fbr
     from wheeledlab_torch.utils.config import RUN_CONFIGS, override
 
-    phase("resume")
-    run = next(r for r in fbr.RESUMABLE if r[0] == "rss_elev_h100")
+    run = next(r for r in fbr.RESUMABLE if r[0] == name)
     half = RESUME_ITERS // 2
+    envs = RUN_CONFIGS.get(run[1]).num_envs
 
     def segment(logs, k, stop, load_run=None):
         cfg = RUN_CONFIGS.get(run[1])
         for key, v in (("train.num_iterations", RESUME_ITERS),
                        ("train.target_return", run[4]),
                        ("train.log.logs_dir", logs),
-                       ("train.log.run_name", fbr.segment_dir(run[0], k)),
+                       ("train.log.run_name", fbr.segment_dir(name, k)),
                        ("train.log.log_every", 1),
                        ("train.log.checkpoint_every", half),
                        ("device", device)):
@@ -1256,8 +1266,8 @@ def resume_phase(device, card):
             cfg = override(cfg, "train.load_run", load_run)
         t0 = time.time()
         state, _ = train(cfg, max_iterations=stop, verbose=False)
-        fbr.record_segment(logs, run[0], {
-            "segment": k, "run_dir": fbr.segment_dir(run[0], k),
+        fbr.record_segment(logs, name, {
+            "segment": k, "run_dir": fbr.segment_dir(name, k),
             "load_run": load_run, "from_iteration": half if load_run else 0,
             "to_iteration": state.iteration, "checkpoint": state.iteration,
             "rc": 0, "stopped": stop < RESUME_ITERS,
@@ -1269,16 +1279,16 @@ def resume_phase(device, card):
         reset_launches()
         segment(straight, 0, RESUME_ITERS)
         segment(split, 0, half)
-        segment(split, 1, RESUME_ITERS, load_run=fbr.segment_dir(run[0], 0))
+        segment(split, 1, RESUME_ITERS, load_run=fbr.segment_dir(name, 0))
         torch.cuda.synchronize()
         launches = read_launches()
-        check_launches("resume", launches,
-                       {**NO_LAUNCHES, "K3": 2 * RESUME_ITERS * 128})
+        check_launches(f"resume {name}", launches,
+                       {**NO_LAUNCHES, kernel: 2 * RESUME_ITERS * 128})
         want = fbr.stitch(straight, run, os.path.join(tmp, "a"))
         got = fbr.stitch(split, run, os.path.join(tmp, "b"))
         rows = {}
         for d in ("a", "b"):
-            with open(os.path.join(tmp, d, run[0], "metrics.jsonl")) as f:
+            with open(os.path.join(tmp, d, name, "metrics.jsonl")) as f:
                 rows[d] = [json.loads(line) for line in f]
         public = lambda r: {k: v for k, v in r.items()
                             if not k.startswith(("perf/", "time/"))}
@@ -1286,30 +1296,46 @@ def resume_phase(device, card):
                   for a, b in zip(rows["a"], rows["b"])
                   for k in public(a) if public(b).get(k) != a[k]]
         if differ or len(rows["a"]) != len(rows["b"]):
-            raise AssertionError(f"resume: the stitched run differs from "
-                                 f"the straight one: {differ[:8]}")
+            raise AssertionError(f"resume {name}: the stitched run differs "
+                                 f"from the straight one: {differ[:8]}")
         if [len(want["segments"]), len(got["segments"])] != [1, 2]:
-            raise AssertionError(f"resume: segments {want} {got}")
+            raise AssertionError(f"resume {name}: segments {want} {got}")
         for row in rows["b"]:
             if not math.isfinite(row["loss/total"]):
-                raise AssertionError(f"resume: loss {row}")
+                raise AssertionError(f"resume {name}: loss {row}")
         reset_launches()
-        play.main(["--run", fbr.segment_dir(run[0], 1), "--logs-dir", split,
-                   "--steps", str(RESUME_PLAY_STEPS), "--num-envs",
-                   str(RESUME_PLAY_ENVS), "--device", device])
+        metrics = play.main(["--run", fbr.segment_dir(name, 1), "--logs-dir",
+                             split, "--steps", str(RESUME_PLAY_STEPS),
+                             "--num-envs", str(RESUME_PLAY_ENVS),
+                             "--device", device])
         torch.cuda.synchronize()
         play_launches = read_launches()
-        check_launches("resume play", play_launches,
-                       {**NO_LAUNCHES, "K3": RESUME_PLAY_STEPS})
+        check_launches(f"resume {name} play", play_launches,
+                       {**NO_LAUNCHES, play_kernel: RESUME_PLAY_STEPS})
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"resume {name} play metrics {metrics}")
         iter_ms = iteration_ms(rows["a"])
     print(json.dumps({
-        "name": "resume RSS_ELEV_CONFIG", "envs": 1024,
+        "name": f"resume {run[1]}", "run": name, "envs": envs,
         "iterations": RESUME_ITERS, "segments": [half, RESUME_ITERS - half],
         "stitched_equal_bit_for_bit": True,
+        "metrics_held": len(public(rows["a"][0])),
         "ms_per_iteration": iter_ms, "alone_on_card": True,
-        "k3_launches": launches["K3"], "play_k3_launches": play_launches["K3"],
+        f"{kernel.lower()}_launches": launches[kernel],
+        f"play_{play_kernel.lower()}_launches": play_launches[play_kernel],
         "card": card}), flush=True)
-    return launches["K3"], play_launches["K3"], iter_ms
+    return launches[kernel], play_launches[play_kernel], iter_ms
+
+
+def resume_phase(device, card):
+    """Every resumable config of the full-budget runs through their resume
+    and stitch path (`resume_run`): RSS_ELEV_CONFIG (1024 envs, K3),
+    RSS_DRIFT_RNN_CONFIG (1024, K1; the LSTM carry and `reset_prev` are
+    restored) and RSS_VISUAL_CONFIG (512, K2). Returns {run: (launches,
+    play launches, iteration ms)}."""
+    phase("resume")
+    return {name: resume_run(device, card, name, kernel, play_kernel)
+            for name, kernel, play_kernel in RESUME_RUNS}
 
 
 def play_phase(logs):
@@ -2881,6 +2907,8 @@ def main():
                                       ("steady_ms_per_iteration", ms))},
                     rnn_train_launches=rnn_launches,
                     rnn_train_iteration_ms=rnn_ms,
+                    rnn_resume_launches=resume["rss_drift_rnn_h100"][0],
+                    rnn_resume_iteration_ms=resume["rss_drift_rnn_h100"][2],
                     **{f"rnn_{k}": v for k, v in rnn_split.items()},
                     rnn_forward_card_vs_cpu_max_abs_d=rnn_forward_d,
                     mppi_demo_launches=mppi_launches, **tp,
@@ -2907,6 +2935,10 @@ def main():
                     visual_fused=fused["RSS_VISUAL_CONFIG"],
                     visual_play_launches=vis_play_launches,
                     rnn_play_launches=rnn_play_launches,
+                    visual_resume_launches=resume["rss_visual_h100"][0],
+                    visual_resume_play_launches=resume["rss_visual_h100"][1],
+                    visual_resume_iteration_ms=resume["rss_visual_h100"][2],
+                    rnn_resume_play_launches=resume["rss_drift_rnn_h100"][1],
                     **{f"{key}_{VISUAL_ENVS}": visual_k2[key] for key in (
                         "ms", "graph_ms", "plain_ms", "bound_ms")},
                     decimation_512=visual_k2["decimation"],
@@ -2920,9 +2952,9 @@ def main():
                     k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
                     registers.get("physics_step_hf"),
                     train_iteration_ms=elev_ms,
-                    resume_launches=resume[0],
-                    resume_play_launches=resume[1],
-                    resume_iteration_ms=resume[2],
+                    resume_launches=resume["rss_elev_h100"][0],
+                    resume_play_launches=resume["rss_elev_h100"][1],
+                    resume_iteration_ms=resume["rss_elev_h100"][2],
                     bf16_train_iteration_ms=bf16_ms["bfloat16"],
                     elev_fused=fused["RSS_ELEV_CONFIG"],
                     f32_turns_train_iteration_ms=bf16_ms["float32"],

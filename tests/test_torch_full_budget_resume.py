@@ -1,10 +1,11 @@
 """The resume and stitch path of `scripts/full_budget_runs.py` on the CPU: a
-small elevation run (32 envs, 8 steps an env, a log point every iteration,
-a checkpoint every 2) made straight and made in two segments, the first
-stopped at its first checkpoint and the second resumed from it by a second
-invocation, stitches to the same rows apart from `perf/*` and `time/*`; a
-row that a resumed segment logged again and that differs makes the stitch
-fail."""
+small run of each resumable config (elevation, the recurrent drift run,
+visual on its small map; 32 envs, 8 steps an env, a log point every
+iteration, a checkpoint every 2) made straight and made in two segments,
+the first stopped at its first checkpoint and the second resumed from it
+by a second invocation, stitches to the same rows apart from `perf/*` and
+`time/*`; a row that a resumed segment logged again and that differs makes
+the stitch fail."""
 
 import json
 import shutil
@@ -20,14 +21,27 @@ BUDGET = 4
 SMALL = ["--num-envs", "32", "agent.num_steps_per_env=8",
          "train.log.log_every=1", "train.log.checkpoint_every=2",
          "--device", "cpu"]
+# the visual task's small map (tests/test_learning.py::test_visual_improves)
+SMALL_MAP = ["env.map_rows=100", "env.map_cols=100", "env.env_rows=20",
+             "env.env_cols=20", "env.group_rows=5", "env.group_cols=5"]
+# the resumable configs held here: elevation, recurrent drift, visual
+SPLIT_RUNS = ("rss_elev_h100", "rss_drift_rnn_h100", "rss_visual_h100")
+
+
+def resumable(name):
+    return next(r for r in fbr.RESUMABLE if r[0] == name)
 
 
 @pytest.fixture
 def small(monkeypatch):
     segment_command = fbr.segment_command
     play_command = fbr.play_command
-    monkeypatch.setattr(fbr, "segment_command",
-                        lambda *a: segment_command(*a) + SMALL)
+
+    def small_segment(args, run, k, load_run):
+        cmd = segment_command(args, run, k, load_run) + SMALL
+        return cmd + SMALL_MAP if run[0] == "rss_visual_h100" else cmd
+
+    monkeypatch.setattr(fbr, "segment_command", small_segment)
     monkeypatch.setattr(fbr, "play_command",
                         lambda *a: play_command(*a) + ["--device", "cpu"])
     monkeypatch.setattr(fbr, "card", lambda: "cpu")
@@ -37,21 +51,22 @@ def small(monkeypatch):
     monkeypatch.setattr(fbr, "POLL_S", 0.05)
 
 
-def invoke(logs, *extra):
-    return fbr.main(["--logs-dir", str(logs), "--only", RUN,
+def invoke(logs, name, *extra):
+    return fbr.main(["--logs-dir", str(logs), "--only", name,
                      "--max-iterations", str(BUDGET), *extra])
 
 
-def split_run(logs):
+def split_run(logs, name):
     """The run in two segments: the first stopped after its first
     checkpoint (iteration 2), once it has logged iteration 3; the next
-    invocation resumes it from that checkpoint and
-    plays it; a third finds nothing left to run. Returns the exit codes."""
-    rcs = [invoke(logs, "--stop-after", "0")]
+    invocation resumes it from that checkpoint and plays it where its
+    reference was played; a third finds nothing left to run. Returns the
+    exit codes."""
+    rcs = [invoke(logs, name, "--stop-after", "0")]
     assert fbr.next_segment(fbr.build_parser().parse_args(
-        ["--logs-dir", str(logs)]), fbr.RESUMABLE[0]) == (
-        1, f"{RUN}.seg0", 2)
-    rcs += [invoke(logs), invoke(logs)]
+        ["--logs-dir", str(logs)]), resumable(name)) == (
+        1, f"{name}.seg0", 2)
+    rcs += [invoke(logs, name), invoke(logs, name)]
     return rcs
 
 
@@ -65,32 +80,40 @@ def read(path):
         return [json.loads(line) for line in f]
 
 
-def test_two_segments_stitch_to_the_straight_run(small, tmp_path, capsys):
+@pytest.mark.parametrize("name", SPLIT_RUNS)
+def test_two_segments_stitch_to_the_straight_run(small, tmp_path, capsys,
+                                                 name):
+    run = resumable(name)
+    played = run[5]
     straight, split = tmp_path / "straight", tmp_path / "split"
     # the straight run beside the split one, on a thread of its own
     with ThreadPoolExecutor(1) as pool:
-        straight_rc = pool.submit(invoke, straight)
-        split_rcs = split_run(split)
+        straight_rc = pool.submit(invoke, straight, name)
+        split_rcs = split_run(split, name)
     assert straight_rc.result() == 0
     assert split_rcs == [0, 0, 0]
-    first, second = fbr.read_segments(str(split), RUN)
+    first, second = fbr.read_segments(str(split), name)
     assert first["stopped"] and not first["completed"]
     assert first["checkpoint"] == 2 and first["from_iteration"] == 0
-    assert second["load_run"] == f"{RUN}.seg0"
+    assert second["load_run"] == f"{name}.seg0"
     assert second["from_iteration"] == 2 and second["completed"]
-    assert second["play_rc"] == 0 and second["to_iteration"] == BUDGET
-    played = split / f"{RUN}.seg1" / "play"
-    assert sorted(p.name for p in played.iterdir()) == ["play_metrics.json"]
-    assert len(fbr.read_segments(str(split), RUN)) == 2
+    assert second["to_iteration"] == BUDGET
+    play_dir = split / f"{name}.seg1" / "play"
+    if played:
+        assert second["play_rc"] == 0
+        assert sorted(p.name for p in play_dir.iterdir()) == [
+            "play_metrics.json"]
+    else:
+        assert "play_rc" not in second and not play_dir.exists()
+    assert len(fbr.read_segments(str(split), name)) == 2
     # one checkpoint is left of the run: its last
-    assert checkpoint_steps(str(split / f"{RUN}.seg0")) == []
-    assert checkpoint_steps(str(split / f"{RUN}.seg1")) == [BUDGET]
-    run = fbr.RESUMABLE[0]
+    assert checkpoint_steps(str(split / f"{name}.seg0")) == []
+    assert checkpoint_steps(str(split / f"{name}.seg1")) == [BUDGET]
     want = fbr.stitch(str(straight), run, str(tmp_path / "a"))
     got = fbr.stitch(str(split), run, str(tmp_path / "b"))
     capsys.readouterr()
-    a, b = read(tmp_path / "a" / RUN / "metrics.jsonl"), read(
-        tmp_path / "b" / RUN / "metrics.jsonl")
+    a, b = read(tmp_path / "a" / name / "metrics.jsonl"), read(
+        tmp_path / "b" / name / "metrics.jsonl")
     assert [r["iteration"] for r in b] == list(range(1, BUDGET + 1))
     assert public(a) == public(b)
     assert len(got["segments"]) == 2 and len(want["segments"]) == 1
@@ -99,20 +122,20 @@ def test_two_segments_stitch_to_the_straight_run(small, tmp_path, capsys):
     assert got["env_steps"] == BUDGET * 32 * 8
     assert got["value"] == pytest.approx(sum(
         s["wall_s"] for s in got["segments"]))
-    assert got["target_return"] == 1e6 and got["device"] == "cpu"
+    assert got["target_return"] == run[4] and got["device"] == "cpu"
     assert got["return"] == b[-1]["episode/return"]
-    for name in ("run_config.json", "play_metrics.json"):
-        assert (tmp_path / "b" / RUN / name).exists()
-    with open(tmp_path / "b" / RUN / "run_config.json") as f:
+    assert (tmp_path / "b" / name / "run_config.json").exists()
+    assert (tmp_path / "b" / name / "play_metrics.json").exists() == played
+    with open(tmp_path / "b" / name / "run_config.json") as f:
         cfg = json.load(f)["run"]
     assert cfg["train"]["load_run"] is None
     assert cfg["train"]["num_iterations"] == BUDGET
-    assert cfg["train"]["log"]["run_name"] == RUN
+    assert cfg["train"]["log"]["run_name"] == name
 
     # the row the stopped segment logged past its checkpoint was logged
     # again by the next and agreed (the stitch above); had it differed,
     # the stitch fails
-    seg0 = split / f"{RUN}.seg0" / "metrics.jsonl"
+    seg0 = split / f"{name}.seg0" / "metrics.jsonl"
     rows = read(seg0)
     assert [r["iteration"] for r in rows] == [1, 2, 3]
     seg0.write_text("".join(json.dumps(r) + "\n" for r in rows[:2])
