@@ -11,6 +11,7 @@ import json
 import shutil
 from concurrent.futures import ThreadPoolExecutor
 
+import cv2
 import pytest
 
 from wheeledlab_torch.rl.runner import checkpoint_steps
@@ -26,6 +27,8 @@ SMALL_MAP = ["env.map_rows=100", "env.map_cols=100", "env.env_rows=20",
              "env.env_cols=20", "env.group_rows=5", "env.group_cols=5"]
 # the resumable configs held here: elevation, recurrent drift, visual
 SPLIT_RUNS = ("rss_elev_h100", "rss_drift_rnn_h100", "rss_visual_h100")
+# the runs whose task has a camera: played with the policy-view clip
+CAMERA_RUNS = ("rss_visual_h100",)
 
 
 def resumable(name):
@@ -99,10 +102,13 @@ def test_two_segments_stitch_to_the_straight_run(small, tmp_path, capsys,
     assert second["from_iteration"] == 2 and second["completed"]
     assert second["to_iteration"] == BUDGET
     play_dir = split / f"{name}.seg1" / "play"
+    clip = f"{name}.seg1-policyview.mp4" if name in CAMERA_RUNS else None
     if played:
-        assert second["play_rc"] == 0
-        assert sorted(p.name for p in play_dir.iterdir()) == [
-            "play_metrics.json"]
+        # the rollouts and the top-down video are gone; the metrics and,
+        # for a camera task, the policy-view clip are kept
+        assert second["play_rc"] == 0 and second["clip"] == clip
+        assert sorted(p.name for p in play_dir.iterdir()) == sorted(
+            ["play_metrics.json"] + ([clip] if clip else []))
     else:
         assert "play_rc" not in second and not play_dir.exists()
     assert len(fbr.read_segments(str(split), name)) == 2
@@ -118,6 +124,8 @@ def test_two_segments_stitch_to_the_straight_run(small, tmp_path, capsys,
     assert public(a) == public(b)
     assert len(got["segments"]) == 2 and len(want["segments"]) == 1
     assert got["segments"][1]["iterations"] == [2, BUDGET]
+    # the stopped segment's row at 3, logged again by the resumed one
+    assert got["rows_logged_twice"] == 1 and want["rows_logged_twice"] == 0
     assert got["iterations"] == want["iterations"] == BUDGET
     assert got["env_steps"] == BUDGET * 32 * 8
     assert got["value"] == pytest.approx(sum(
@@ -126,6 +134,20 @@ def test_two_segments_stitch_to_the_straight_run(small, tmp_path, capsys,
     assert got["return"] == b[-1]["episode/return"]
     assert (tmp_path / "b" / name / "run_config.json").exists()
     assert (tmp_path / "b" / name / "play_metrics.json").exists() == played
+    stitched = sorted(p.name for p in (tmp_path / "b" / name).iterdir())
+    assert stitched == sorted(
+        ["metrics.jsonl", "result.json", "run_config.json"]
+        + (["play_metrics.json"] if played else [])
+        + ([f"{name}-policyview.mp4"] if clip else []))
+    if clip:
+        # 320 x 240, one frame a played step, at the control rate
+        cap = cv2.VideoCapture(str(tmp_path / "b" / name /
+                                   f"{name}-policyview.mp4"))
+        assert (cap.get(cv2.CAP_PROP_FRAME_WIDTH),
+                cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) == (320, 240)
+        assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 4
+        assert cap.get(cv2.CAP_PROP_FPS) == 5
+        cap.release()
     with open(tmp_path / "b" / name / "run_config.json") as f:
         cfg = json.load(f)["run"]
     assert cfg["train"]["load_run"] is None
@@ -212,3 +234,25 @@ def test_segments_go_through_the_train_cli_on_the_card():
         assert "train.log.no_checkpoints=false" in cmd
         assert "train.log.log_every=10" in cmd
         assert "--num-envs" not in cmd
+
+
+@pytest.mark.parametrize("run", [r for r in fbr.RESUMABLE if r[5]],
+                         ids=lambda r: r[0])
+def test_camera_runs_play_with_video(tmp_path, run):
+    """A played run whose task has a camera (visual) plays with `--video`
+    for its policy-view clip; the elevation plays render no video."""
+    import wheeledlab_torch.rl  # noqa: F401  (registers the RSS_* configs)
+    from wheeledlab_torch.utils.config import RUN_CONFIGS
+
+    name, config = run[0], run[1]
+    task = RUN_CONFIGS.get(config).task_name
+    key = fbr.segment_dir(name, 1)
+    (tmp_path / key).mkdir()
+    with open(tmp_path / key / "run_config.json", "w") as f:
+        json.dump({"run": {"task_name": task}}, f)
+    video = fbr.has_camera(str(tmp_path), key)
+    assert video == (name in CAMERA_RUNS)
+    cmd = fbr.play_command(fbr.build_parser().parse_args(
+        ["--logs-dir", str(tmp_path)]), key, video)
+    assert ("--video" in cmd) == (name in CAMERA_RUNS)
+    assert cmd[cmd.index("--device") + 1] == "cuda"

@@ -318,6 +318,34 @@ class TestRunSummary:
         assert "first3_slip_deg" not in line
         assert set(line["at"]) == {a for a in run_summary.AT if a <= 4000}
 
+    def test_reference_visual_curve(self, capsys):
+        """`--at` and `--keys` on the reference's visual run: the
+        traversable share and the entropy at the iterations asked for, and
+        the shares of log points with the LR at `min_lr` and at `max_lr`,
+        against its rows read directly."""
+        from wheeledlab_torch.scripts import run_summary
+
+        run_dir = os.path.join(os.path.dirname(__file__), "..", "docs",
+                               "runs", "rss_visual_tpu")
+        keys = ["metrics/traversable_frac", "loss/entropy"]
+        (line,) = run_summary.main([run_dir, "--at", "400", "800", "3600",
+                                    "--keys", *keys])
+        capsys.readouterr()
+        rows = {r["iteration"]: r for r in read_metrics(
+            os.path.dirname(run_dir), "rss_visual_tpu")}
+        assert set(line["at"]) == {400, 800, 3600}
+        for it, got in line["at"].items():
+            assert got == {k: rows[it][k] for k in (*run_summary.AT_KEYS,
+                                                    *keys)}
+        lr = np.array([r["lr"] for r in rows.values()])
+        assert line["lr_at_min_share"] == pytest.approx(
+            np.mean(lr <= 1e-5 * (1 + 1e-6)))
+        assert line["lr_at_max_share"] == pytest.approx(
+            np.mean(lr >= 1e-2 * (1 - 1e-6)))
+        assert 0.0 < line["lr_at_min_share"] < 1.0
+        assert line["first3_traversable_frac"] < 0.3 < 0.6 < line[
+            "last10_traversable_frac"]
+
     @pytest.mark.parametrize("bar, want", [(1.5, 4.0), (2.5, 46.0 + 3.0),
                                            (3.5, 46.0 + 27.0 + 2.0)])
     def test_stitched_bar_wall_s(self, tmp_path, capsys, bar, want):
@@ -334,7 +362,7 @@ class TestRunSummary:
                         "perf/wall_s": wall, "loss/kl": 1e-3, "lr": 1e-3})
             + "\n" for it, ret, wall in rows))
         (tmp_path / "run_config.json").write_text(json.dumps(
-            {"run": {"agent": {"max_lr": 1e-2}}}))
+            {"run": {"agent": {"min_lr": 1e-5, "max_lr": 1e-2}}}))
         (tmp_path / "result.json").write_text(json.dumps({"segments": [
             {"iterations": [0, 20], "train_s": 46.0},
             {"iterations": [20, 30], "train_s": 27.0},

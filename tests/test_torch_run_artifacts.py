@@ -252,6 +252,34 @@ def test_visual_played():
     assert m["speed_mean"] > 0.0, m
 
 
+@pytest.mark.parametrize("name, frames", [("rss_visual_h100", 500),
+                                          ("rss_visual_tpu", 200)])
+def test_visual_policy_view_clip(name, frames):
+    """The visual play's policy-view clip, env 0's camera: 320 x 240, one
+    frame a played step (the port's play: 500; the reference's clip: 200),
+    at the control rate, 5 fps (decimation 20 x dt 0.01)."""
+    path = os.path.join(RUNS_DIR, name, f"{name}-policyview.mp4")
+    if not os.path.exists(path):
+        pytest.skip(f"no committed policy-view clip of {name}")
+    cv2 = pytest.importorskip("cv2")
+    cap = cv2.VideoCapture(path)
+    try:
+        assert cap.isOpened(), path
+        assert (cap.get(cv2.CAP_PROP_FRAME_WIDTH),
+                cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) == (320, 240)
+        assert cap.get(cv2.CAP_PROP_FPS) == pytest.approx(5.0)
+        read = 0
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            assert frame.shape == (240, 320, 3)
+            read += 1
+    finally:
+        cap.release()
+    assert read == frames
+
+
 def test_recurrent_drift_learns():
     """RSS_DRIFT_RNN_CONFIG at 1024 envs x 1500 iterations: the bars of
     `TestRecurrentDriftArtifact` (tests/test_run_artifacts.py:81-98)."""

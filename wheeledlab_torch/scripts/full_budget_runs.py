@@ -23,7 +23,8 @@ artifacts' settings. Two kinds of run:
   (`train.load_run=<name>.seg<j>`). A later invocation with the same
   `--logs-dir` continues every unfinished run, and plays each run that
   ends (`cli.play --steps 500 --num-envs 64`) when its reference committed
-  play metrics:
+  play metrics, with `--video` where its task has a camera (the
+  reference's visual run committed its policy-view clip):
 
     rss_elev_h100, rss_elev_h100_seed1     RSS_ELEV_CONFIG, seeds 0, 1,
                                            4000 iterations, target 1e6
@@ -47,15 +48,18 @@ but the latest is deleted. `<logs-dir>/<name>.segments.jsonl` records each
 segment: the iteration it resumed from, its last log point and checkpoint,
 its exit code, wall seconds, the card and the runs it shared the card with.
 
-A played run keeps its `play_metrics.json`; its rollouts are deleted.
+A played run keeps its `play_metrics.json` and, where it has a camera, its
+policy-view clip `<run dir>-policyview.*`; its rollouts and its top-down
+video are deleted.
 `--stitch OUT` writes each selected resumable run as one run under
 `OUT/<name>/`, as `docs/runs/<name>/` commits it: `metrics.jsonl` with every
 log point of the budget once (a row that a resumed segment logged again
 must agree with the earlier one in every metric but `perf/*` and `time/*`,
 or the stitch fails: resuming is exact), the first segment's
 `run_config.json` with `load_run` null, `result.json` with `train_bench`'s
-keys over the whole run plus `segments`, and `play_metrics.json` where the
-run was played. A run not yet finished is not written: the stitch holds
+keys over the whole run plus `segments` and the number of rows logged
+twice, and `play_metrics.json` and the policy-view clip (as
+`<name>-policyview.*`) where the run was played. A run not yet finished is not written: the stitch holds
 its rows logged twice all the same and reports them. It needs no device.
 
 A drift run writes `<logs-dir>/<name>/` (metrics.jsonl, run_config.json,
@@ -71,6 +75,7 @@ run's segment. The exit code is 1 if a run failed.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import math
 import os
@@ -97,6 +102,9 @@ RESUMABLE = (("rss_elev_h100", "RSS_ELEV_CONFIG", 0, 4000, 1e6, True),
 # the reference's playback: 500 steps of 64 envs
 # (docs/runs/rss_elev_tpu/goal_analysis.md)
 PLAY_ARGS = ("--steps", "500", "--num-envs", "64")
+# the tasks with a camera, played with `--video` for env 0's policy-view
+# clip (docs/runs/rss_visual_tpu/rss_visual_tpu-policyview.mp4)
+CAMERA_TASKS = ("MushrVisualRL-v0",)
 SAMPLE_S = 30.0      # seconds between samples of the processes' memory
 STOP_GRACE_S = 300.0  # seconds a stopped process has to reach a checkpoint
 POLL_S = 0.5
@@ -152,10 +160,34 @@ def segment_command(args, run, k, load_run):
     return cmd
 
 
-def play_command(args, run_dir):
-    return [sys.executable, "-m", "wheeledlab_torch.cli.play",
-            "--run", run_dir, "--logs-dir", args.logs_dir,
-            "--device", "cuda", *PLAY_ARGS]
+def play_command(args, run_dir, video=False):
+    cmd = [sys.executable, "-m", "wheeledlab_torch.cli.play",
+           "--run", run_dir, "--logs-dir", args.logs_dir,
+           "--device", "cuda", *PLAY_ARGS]
+    return cmd + ["--video"] if video else cmd
+
+
+def has_camera(logs_dir: str, run_dir: str) -> bool:
+    with open(os.path.join(logs_dir, run_dir, "run_config.json")) as f:
+        return json.load(f)["run"]["task_name"] in CAMERA_TASKS
+
+
+def find_clip(play_dir: str, run_dir: str):
+    """The policy-view clip `cli.play --video` wrote in `play_dir` (its
+    extension the encoder's: `.mp4` through OpenCV), or None."""
+    clips = glob.glob(os.path.join(glob.escape(play_dir),
+                                   f"{glob.escape(run_dir)}-policyview.*"))
+    return clips[0] if clips else None
+
+
+def drop_play_bulk(play_dir: str, run_dir: str):
+    """Delete the rollouts (visual's: 500 x 64 x 3208 float32 observations,
+    about 410 MB) and the top-down video, which are not kept;
+    play_metrics.json and the policy-view clip are."""
+    for f in os.listdir(play_dir):
+        if (f == f"{run_dir}-rollouts.npz"
+                or os.path.splitext(f)[0] == run_dir):
+            os.remove(os.path.join(play_dir, f))
 
 
 def build_kernels():
@@ -313,8 +345,8 @@ def stitch(logs_dir: str, run, out_dir: str) -> dict:
     seg_rows = [read_rows(os.path.join(logs_dir, s["run_dir"],
                                        "metrics.jsonl")) for s in segments]
     rows = stitch_rows(name, seg_rows)
+    twice = sum(map(len, seg_rows)) - len(rows)
     if not segments or not segments[-1]["completed"]:
-        twice = sum(map(len, seg_rows)) - len(rows)
         raise StitchError(f"{name}: the run has not finished "
                           f"({len(segments)} segments, to iteration "
                           f"{max(rows, default=0)}; {twice} rows logged twice, "
@@ -367,6 +399,8 @@ def stitch(logs_dir: str, run, out_dir: str) -> dict:
         "train_s": train_s,
         "startup_s": wall - train_s,
         "device": "; ".join(described),
+        # the log points a resumed segment logged again, each held equal
+        "rows_logged_twice": twice,
         "segments": [{
             "segment": s["segment"],
             "iterations": [s["from_iteration"], s["to_iteration"]],
@@ -388,10 +422,14 @@ def stitch(logs_dir: str, run, out_dir: str) -> dict:
         json.dump(run_config, f, indent=2)
     with open(os.path.join(dest, "result.json"), "w") as f:
         json.dump(result, f)
-    played = os.path.join(logs_dir, segments[-1]["run_dir"], "play",
-                          "play_metrics.json")
+    play_dir = os.path.join(logs_dir, segments[-1]["run_dir"], "play")
+    played = os.path.join(play_dir, "play_metrics.json")
     if os.path.exists(played):
         shutil.copyfile(played, os.path.join(dest, "play_metrics.json"))
+    clip = find_clip(play_dir, segments[-1]["run_dir"])
+    if clip is not None:
+        shutil.copyfile(clip, os.path.join(
+            dest, f"{name}-policyview{os.path.splitext(clip)[1]}"))
     return result
 
 
@@ -527,18 +565,18 @@ def main(argv=None) -> int:
                            "rss_mib_first", "rss_mib_last", "rss_mib_max")}}
             failed |= not (segment["completed"] or segment["stopped"])
             if segment["completed"] and run[5]:
+                video = has_camera(args.logs_dir, key)
                 with open(os.path.join(args.logs_dir, f"{key}.play.log"),
                           "w") as out:
                     segment["play_rc"] = subprocess.run(
-                        play_command(args, key), env=env, stdout=out,
+                        play_command(args, key, video), env=env, stdout=out,
                         stderr=subprocess.STDOUT).returncode
-                failed |= segment["play_rc"] != 0
-                # the rollouts (elevation's: 500 x 64 x 689 observations,
-                # tens of MB) are not kept; play_metrics.json is
-                rollouts = os.path.join(args.logs_dir, key, "play",
-                                        f"{key}-rollouts.npz")
-                if os.path.exists(rollouts):
-                    os.remove(rollouts)
+                play_dir = os.path.join(args.logs_dir, key, "play")
+                if os.path.isdir(play_dir):
+                    drop_play_bulk(play_dir, key)
+                clip = find_clip(play_dir, key)
+                segment["clip"] = clip and os.path.basename(clip)
+                failed |= segment["play_rc"] != 0 or (video and clip is None)
             record_segment(args.logs_dir, name, segment)
             prune_checkpoints(args.logs_dir, read_segments(args.logs_dir,
                                                            name))

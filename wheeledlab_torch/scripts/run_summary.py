@@ -3,20 +3,23 @@
 run to set them side by side.
 
     python -m wheeledlab_torch.scripts.run_summary docs/runs/rss_drift_h100 \
-        docs/runs/rss_drift_tpu [--bar 700]
+        docs/runs/rss_drift_tpu [--bar 700] [--at 10 400 800 ...]
+        [--keys metrics/traversable_frac loss/entropy ...]
 
 One JSON line a run: the first-3 and last-10 means of the channels
 `tests/test_run_artifacts.py` holds runs to (return, slip, speed, ground
 height, goal distance and velocity, goal terminations, traversable share,
 forward velocity, those the task logs); the return,
-`loss/kl`, `lr` and `loss/value` at the iterations `AT`; the first
+`loss/kl`, `lr` and `loss/value` (and the metrics `--keys` names) at the
+iterations `--at` (default `AT`); the first
 logged iteration whose return reaches `--bar` and the training seconds to
 it (on a run stitched from segments, those of the segments before it too:
 `perf/wall_s` restarts in each);
 the first log point of a stall (|KL| < STALL_KL) and the first after it
-that begins BACK_POINTS log points with the KL back (>= BACK_KL); and over the last 1000 iterations the median KL, the share of log points
-with the LR at the learner's `max_lr` and the LR's range, with the count
-of non-finite returns.
+that begins BACK_POINTS log points with the KL back (>= BACK_KL); the
+share of log points with the LR at the learner's `min_lr` and at its
+`max_lr` over the whole run; and over the last 1000 iterations the median KL, the share of log points with the LR
+at `max_lr` and the LR's range, with the count of non-finite returns.
 """
 
 from __future__ import annotations
@@ -70,8 +73,17 @@ def mean(rows, key):
     return sum(values) / len(values) if values else None
 
 
-def summary(run_dir, bar):
+def at_share(rows, lr, above):
+    """The share of `rows` whose LR is at `lr` (within float32 rounding),
+    from above (`min_lr`) or below (`max_lr`)."""
+    if above:
+        return sum(r["lr"] <= lr * (1 + 1e-6) for r in rows) / len(rows)
+    return sum(r["lr"] >= lr * (1 - 1e-6) for r in rows) / len(rows)
+
+
+def summary(run_dir, bar, at=AT, keys=()):
     rows, config, result = load(run_dir)
+    min_lr = config["run"]["agent"]["min_lr"]
     max_lr = config["run"]["agent"]["max_lr"]
     last = [r for r in rows if r["iteration"] > rows[-1]["iteration"] - 1000]
     reached = next((r for r in rows if r["episode/return"] >= bar), None)
@@ -87,16 +99,17 @@ def summary(run_dir, bar):
            for k in FIRST_LAST if k in rows[0]},
         **{f"last10_{k.split('/')[1]}": mean(rows[-10:], k)
            for k in FIRST_LAST if k in rows[0]},
-        "at": {r["iteration"]: {k: r.get(k) for k in AT_KEYS}
-               for r in rows if r["iteration"] in AT},
+        "at": {r["iteration"]: {k: r.get(k) for k in (*AT_KEYS, *keys)}
+               for r in rows if r["iteration"] in at},
         "bar": bar,
         "bar_iteration": reached and reached["iteration"],
         "bar_wall_s": reached and wall_to(reached, result),
         "stall_iteration": stall and stall["iteration"],
         "kl_back_iteration": back and back["iteration"],
+        "lr_at_min_share": at_share(rows, min_lr, True),
+        "lr_at_max_share": at_share(rows, max_lr, False),
         "last1000_kl_median": statistics.median(r["loss/kl"] for r in last),
-        "last1000_lr_at_max_share": sum(
-            r["lr"] >= max_lr * (1 - 1e-6) for r in last) / len(last),
+        "last1000_lr_at_max_share": at_share(last, max_lr, False),
         "last1000_lr_min": min(r["lr"] for r in last),
         "last1000_lr_max": max(r["lr"] for r in last),
         "nonfinite_returns": sum(
@@ -112,8 +125,14 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("runs", nargs="+")
     p.add_argument("--bar", type=float, default=700.0)
+    p.add_argument("--at", type=int, nargs="+", default=list(AT),
+                   help="the iterations to report metrics at")
+    p.add_argument("--keys", nargs="+", default=[],
+                   help="metrics reported at those iterations besides "
+                        "the return, KL, LR and value loss")
     args = p.parse_args(sys.argv[1:] if argv is None else argv)
-    lines = [summary(run, args.bar) for run in args.runs]
+    lines = [summary(run, args.bar, args.at, args.keys)
+             for run in args.runs]
     for line in lines:
         print(json.dumps(line), flush=True)
     return lines
