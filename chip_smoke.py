@@ -11,7 +11,8 @@ printing its final line:
              (one nvcc per source, all started together) and print the
              build time and each ptxas resource report.
 3. kernel  — hold each kernel against its plain PyTorch version on the
-             card; every env must agree (K4, K5a, K5b: see below):
+             card, every env bit for bit (K4: see below; every kernel is
+             built without FMA contraction):
              K1, the fused drift step (`drift_step_rows`), at 65536 and
              32768 envs (POD_DRIFT_CONFIG's widths on one rank and on each
              of two), 16384, 1024, 1000, 7 and 1 envs (the last three leave
@@ -19,7 +20,7 @@ printing its final line:
              or a group count that is no multiple of 8), for MuSHR and
              F1Tenth, with push events, observation noise, resets and
              time-outs firing, and on the state an env starts from (every
-             car standing);
+             car standing), bit for bit;
              K2, the flat physics step (the `substep_soa` loop), at 16384,
              1024, 1000 and 16 envs, decimation 4 and 20, both robots, bit
              for bit;
@@ -31,20 +32,50 @@ printing its final line:
              largest patch the wrapper takes (`MAX_P`); and on cars at rest
              on the terrain. It must equal its plain version bit for bit.
              K5b, the Philox random blocks (`philox_blocks`), at 4096, 1000,
-             16, 7 and 1 envs: the uniforms' 24-bit words bit for bit, the
-             normals within tolerance;
+             16, 7 and 1 envs: the uniforms' 24-bit words and the normals
+             bit for bit;
              K4, the fused drift step that draws its rows in the kernel
              (`philox_blocks` + `drift_step_rows`), at 16384, 1024, 1000, 7
              and 1 envs, both robots, noise on and off, and at 32768 envs
              (a rank's half of POD_DRIFT_CONFIG) on the seed rank 1 hands
-             the kernel (a drawn seed plus 0x3779B1, wrapped to int32), and
-             bit for bit against K1 fed K5b's rows;
+             the kernel (a drawn seed plus 0x3779B1, wrapped to int32),
+             every env within FLOAT_TOL, and bit for bit against K1 fed
+             K5b's rows;
              K5a, the K-step resident rollout (K chained `drift_step_rows`),
              at K = 1, 2, 4, 8 and the same widths, both robots, and against
-             K chained K1 launches;
+             K chained K1 launches, bit for bit;
              K2 at the visual task's shape (512 and 7 envs, decimation 20,
              dt 0.01, MuSHR with the task's DR on ground friction 2.0), bit
              for bit.
+             A float that is not finite on either side marks its env, and
+             the max error counts only floats finite on both sides, so it is
+             never NaN. A mismatch prints, for each output that disagrees,
+             "<case> <output>: N envs beyond tolerance, M not bit-equal[; not
+             finite in a envs (kernel), b (plain)]; first env e: kernel
+             [column], plain [column]", then launches the kernel and runs
+             the plain version once more on the same inputs and prints
+             {"check": "repeat after a disagreement", "case": ...,
+             "kernel_repeated_bit_for_bit": ..., "plain_repeated_bit_for_bit":
+             ..., and the envs that changed on each side}: the side that did
+             not repeat itself is the one at fault. The phase fails after
+             every case has printed.
+   integrity — what an intermittent disagreement could come from, one JSON
+             line a check with its counts: every case above once more with
+             each output made by `torch.empty`/`torch.empty_like` filled
+             with a sentinel (NaN, INT32_MIN) and placed between margins of
+             one row of it: no sentinel may remain, no margin may be
+             written, and the outputs must equal the ordinary launch's bit
+             for bit ("poisoned outputs"); K1, K3 and K4 at 1024 envs and
+             their largest width (65536, 16384, 32768) with every input
+             block a contiguous view between margins of one row of
+             sentinels: the same bits out, inputs and margins untouched
+             ("guard bands"); 64 launches of K1 at 65536 envs and 32 of K4
+             at 32768, both robots, and 32 of K3 at 16384 on the same
+             inputs, each equal to the first bit for bit ("repeated
+             launches"); the plain drift step 4 times on the card at 65536
+             envs, both robots ("repeated plain drift steps on the card");
+             K1 against its plain version at 65536 envs on 6 more seeds a
+             robot ("K1 against plain on more seeds").
    per-vehicle — `sim/dynamics.py::step` (the physics of
              `use_kernels="off"` and of a heightfield without an atlas)
              against K2 at 1024 and 16384 envs, both robots, decimation 4,
@@ -178,6 +209,7 @@ after. It imports nothing of JAX. The last line is the result object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -185,10 +217,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Any, NamedTuple
 
-# nvcc's default FMA contraction moves K1's floats by a few ulp against the
-# plain version (K2, K3 and K5a are built without it and match exactly);
-# integers and done flags must match exactly.
+# The stated tolerance of a kernel against its plain version; integers and
+# done flags must match exactly. Every kernel is built without FMA
+# contraction (`ops/build.py::NVCC_FLAGS`) and is held bit for bit where it
+# computes what its plain version does: K1, K2, K3, K5a and K5b. K4 is held
+# bit for bit against K1 fed K5b's rows, and within the tolerance against
+# its plain version (with the noise off, 0.0 and -0.0 differ in some
+# envs).
 FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor-
 # core) operations/s
@@ -395,92 +432,317 @@ STEP_OUTPUTS = ("state", "obs", "out", "step_count", "timers", "ep_return",
 MULTI_OUTPUTS = ("state", "step_count", "timers", "ep_return", "ep_len")
 
 
-def compare_mask(got, want, names=STEP_OUTPUTS):
-    """Agreement of the outputs over every env: returns (max |got - want| of
-    the float outputs, (B,) mask of the envs beyond FLOAT_TOL or with an
-    integer that differs)."""
+INT32_MIN = -2**31
+
+
+class Agreement(NamedTuple):
+    """Kernel outputs held against their plain version's, env by env."""
+    max_err: float   # max |kernel - plain| over the float elements finite on
+    #                  both sides: never NaN
+    beyond: Any      # (B,) envs beyond FLOAT_TOL, not finite on either side,
+    #                  or with an integer that differs
+    differ: Any      # (B,) envs that differ in any bit
+    report: list     # a line for each output that disagrees
+
+
+class NotFinite(AssertionError):
+    """A kernel output that is not finite; `agreement` holds the whole
+    comparison, report included."""
+
+    def __init__(self, agreement):
+        super().__init__("kernel output not finite: "
+                         + "; ".join(agreement.report))
+        self.agreement = agreement
+
+
+def bits(t):
+    """`t`'s elements as int32 words: a float32's bit pattern, so that `==`
+    compares bit for bit and a NaN equals its own bits."""
+    import torch
+
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def compare_mask(got, want, names=STEP_OUTPUTS, exact=False,
+                 sides=("kernel", "plain")):
+    """Agreement of the outputs `got` (the kernel's) and `want` (the plain
+    version's), each a sequence of (rows, B) tensors named by `names`, over
+    every env: an env is beyond in an output where a float is beyond
+    FLOAT_TOL of the plain value or is not finite on either side, or where
+    an integer differs. The report has a line for each output with an env
+    beyond (with `exact`, also an env that differs in any bit): its name,
+    how many envs, the first of them and that env's column on both sides
+    (named by `sides`). Raises `NotFinite` if a float of `got` is not
+    finite; a non-finite plain value marks its env beyond."""
     import torch
 
     if len(got) != len(names) or len(want) != len(names):
         raise AssertionError(f"expected {len(names)} outputs")
     b = got[0].shape[1]
-    bad = torch.zeros(b, dtype=torch.bool, device=got[0].device)
-    max_err = 0.0
+    beyond = torch.zeros(b, dtype=torch.bool, device=got[0].device)
+    differ = torch.zeros_like(beyond)
+    max_err, report, finite = 0.0, [], True
     for name, g, w in zip(names, got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
                                  f"{w.shape}/{w.dtype}")
+        off_bits = (bits(g) != bits(w)).any(0)
         if g.dtype == torch.int32:
-            bad |= (g != w).any(0)
+            off, not_finite = off_bits, ""
         else:
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"{name}: kernel output not finite")
-            err = (g - w).abs()
+            fin_g, fin_w = torch.isfinite(g), torch.isfinite(w)
+            both = fin_g & fin_w
+            err = torch.where(both, (g - w).abs(), 0.0)
             tol = FLOAT_TOL["atol"] + FLOAT_TOL["rtol"] * w.abs()
-            bad |= (err > tol).any(0)
+            off = ((err > tol) | ~both).any(0)
             max_err = max(max_err, err.max().item())
-    return max_err, bad
+            bad_g = int((~fin_g).any(0).sum())
+            bad_w = int((~fin_w).any(0).sum())
+            finite &= bad_g == 0
+            not_finite = (f"; not finite in {bad_g} envs ({sides[0]}), "
+                          f"{bad_w} ({sides[1]})" if bad_g or bad_w else "")
+        beyond |= off
+        differ |= off_bits
+        shown = off | off_bits if exact else off
+        if shown.any():
+            e = int(shown.nonzero()[0])
+            report.append(
+                f"{name}: {int(off.sum())} envs beyond tolerance, "
+                f"{int(off_bits.sum())} not bit-equal{not_finite}; first env "
+                f"{e}: {sides[0]} {g[:, e].tolist()}, {sides[1]} "
+                f"{w[:, e].tolist()}")
+    agreement = Agreement(max_err, beyond, differ, report)
+    if not finite:
+        raise NotFinite(agreement)
+    return agreement
 
 
-def compare(got, want, names=STEP_OUTPUTS):
-    """`compare_mask` with the mask counted: (max error, number of envs
-    beyond FLOAT_TOL or with an integer that differs)."""
-    max_err, bad = compare_mask(got, want, names)
-    return max_err, int(bad.sum())
+def compare_rows(got, want, name="rows", exact=False,
+                 sides=("kernel", "plain")):
+    """`compare_mask` of one (rows, B) output."""
+    return compare_mask([got], [want], (name,), exact, sides)
+
+
+def agreement(got, want, names, exact=False, sides=("kernel", "plain")):
+    """`compare_mask`'s agreement, also where a kernel output is not finite
+    (`NotFinite`): for a caller that reports every case before it fails."""
+    try:
+        return compare_mask(got, want, names, exact, sides)
+    except NotFinite as e:
+        return e.agreement
+
+
+def as_tuple(outs):
+    return outs if isinstance(outs, tuple) else (outs,)
+
+
+def settle(outs):
+    """Waits for the card when `outs` lie on it."""
+    import torch
+
+    if any(t.is_cuda for t in outs):
+        torch.cuda.synchronize()
+
+
+def repeat_sides(label, kernel, plain, got, want):
+    """After a disagreement: launches the kernel and runs the plain version
+    once more on the same inputs and prints whether each side repeated its
+    first result bit for bit, so that a disagreement that does not recur
+    names the side it came from. Returns the printed record."""
+    again = as_tuple(kernel())
+    settle(again)
+    plain_again = as_tuple(plain())
+    k_envs = envs_not_bit_equal(got, again)
+    p_envs = envs_not_bit_equal(want, plain_again)
+    record = {"check": "repeat after a disagreement", "case": label,
+              "kernel_repeated_bit_for_bit": k_envs == 0,
+              "kernel_envs_changed": k_envs,
+              "plain_repeated_bit_for_bit": p_envs == 0,
+              "plain_envs_changed": p_envs}
+    print(json.dumps(record), flush=True)
+    return record
+
+
+class Held(NamedTuple):
+    got: tuple
+    want: tuple
+    max_err: float
+    beyond: int      # envs beyond FLOAT_TOL, not finite or integers off
+    differ: int      # envs not bit-equal
+
+
+def hold(label, kernel, plain, names, failures, exact=False):
+    """Holds `kernel()`, a launch, against `plain()`, its plain version on
+    the same inputs (each returns a (rows, B) tensor or a tuple of them,
+    named by `names`): no env may be beyond (`compare_mask`) and, with
+    `exact`, none may differ in any bit. On a disagreement it prints the
+    report, repeats both sides (`repeat_sides`) and appends the case to
+    `failures`."""
+    got = as_tuple(kernel())
+    settle(got)
+    want = as_tuple(plain())
+    a = agreement(got, want, names, exact)
+    beyond, differ = int(a.beyond.sum()), int(a.differ.sum())
+    if beyond or (exact and differ):
+        for line in a.report:
+            print(f"{label} {line}", flush=True)
+        repeat_sides(label, kernel, plain, got, want)
+        failures.append(f"{label}: {beyond} envs beyond tolerance, {differ} "
+                        f"not bit-equal")
+    return Held(got, want, a.max_err, beyond, differ)
+
+
+def sentinel(dtype):
+    """What a poisoned or guarded buffer holds where nothing was written:
+    NaN in float32, the least int32 in int32."""
+    import torch
+
+    return {torch.float32: math.nan, torch.int32: INT32_MIN}[dtype]
+
+
+def sentinel_buffer(shape, dtype, device, margin):
+    """A new buffer of `shape`'s elements plus `margin` on each side, all
+    at the sentinel: returns the contiguous view of `shape` in its middle
+    (its `_base` is the whole buffer)."""
+    import torch
+
+    n = math.prod(shape)
+    buf = torch.full((n + 2 * margin,), sentinel(dtype), dtype=dtype,
+                     device=device)
+    return buf[margin:margin + n].view(shape)
+
+
+def guarded(t, margin):
+    """`t` copied into the middle of a `sentinel_buffer` with `margin`
+    elements on each side: a contiguous view equal to `t`, so that a read
+    past either end of the block reads a sentinel."""
+    view = sentinel_buffer(tuple(t.shape), t.dtype, t.device, margin)
+    return view.copy_(t)
+
+
+def margins_written(view):
+    """Elements of the margins of `view`'s `sentinel_buffer` that no longer
+    hold the sentinel's bits."""
+    import torch
+
+    buf = view._base
+    start = view.storage_offset() - buf.storage_offset()
+    edge = torch.cat([buf[:start], buf[start + view.numel():]])
+    fill = torch.full_like(edge, sentinel(edge.dtype))
+    return int((bits(edge) != bits(fill)).sum())
+
+
+def at_sentinel(t):
+    """Elements of `t` that hold its dtype's sentinel (a NaN of any bits in
+    float32)."""
+    import torch
+
+    return int((torch.isnan(t) if t.dtype == torch.float32
+                else t == INT32_MIN).sum())
+
+
+@contextlib.contextmanager
+def poisoned_allocations():
+    """Within it, `torch.empty` and `torch.empty_like` of a float32 or int32
+    tensor hand out a `sentinel_buffer` view with a margin of one row (the
+    last dimension) on each side; yields the list of what they handed
+    out."""
+    import torch
+
+    empty, empty_like = torch.empty, torch.empty_like
+    made = []
+
+    def poison(probe):
+        if probe.dtype not in (torch.float32, torch.int32):
+            return probe
+        shape = tuple(probe.shape)
+        view = sentinel_buffer(shape, probe.dtype, probe.device,
+                               max(shape[-1:] or (1,)))
+        made.append(view)
+        return view
+
+    def poisoned_empty(*size, **kw):
+        if len(size) == 1 and not isinstance(size[0], int):
+            size = tuple(size[0])
+        t = empty(*size, **kw)
+        return poison(t) if set(kw) <= {"dtype", "device"} else t
+
+    def poisoned_empty_like(t, **kw):
+        out = empty_like(t, **kw)
+        return (poison(out) if set(kw) <= {"dtype", "device"}
+                and out.is_contiguous() else out)
+
+    torch.empty, torch.empty_like = poisoned_empty, poisoned_empty_like
+    try:
+        yield made
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def poisoned(launch, ordinary):
+    """Runs `launch()` within `poisoned_allocations` and holds its outputs
+    against `ordinary`, the outputs of the same launch made without: returns
+    the counts of elements left at the sentinel, margin elements written,
+    outputs not handed out by the poisoned allocators and elements that
+    differ from `ordinary` in any bit."""
+    with poisoned_allocations() as made:
+        outs = as_tuple(launch())
+    settle(outs)
+    ptrs = {m.data_ptr() for m in made}
+    counts = dict(outputs=len(outs), sentinels_left=0, margins_written=0,
+                  not_poisoned=0, not_bit_equal=0)
+    for out, want in zip(outs, as_tuple(ordinary)):
+        if out.data_ptr() not in ptrs:
+            counts["not_poisoned"] += 1
+            continue
+        counts["sentinels_left"] += at_sentinel(out)
+        counts["margins_written"] += margins_written(out)
+        counts["not_bit_equal"] += (int((bits(out) != bits(want)).sum())
+                                    if out.shape == want.shape
+                                    else out.numel())
+    return counts
 
 
 def kernel_phase(device):
-    import torch
-
+    """K1 against its plain version. Every case is checked and printed
+    before a disagreement raises."""
     phase("kernel")
     print(f"tolerance |kernel - plain| <= {FLOAT_TOL['atol']} + "
-          f"{FLOAT_TOL['rtol']} |plain|; integers exact; no env beyond",
-          flush=True)
-    max_err, cases = 0.0, {}
+          f"{FLOAT_TOL['rtol']} |plain|, both finite; integers exact; no env "
+          f"beyond", flush=True)
+    max_err, cases, failures = 0.0, {}, []
     for robot in ("mushr", "f1tenth"):
         for b in (POD_ENVS, POD_RANK_ENVS, 16384, 1024) + TAIL_WIDTHS:
             cfg, x = step_inputs(robot, b, seed=b + len(robot), device=device)
-            got = kernel_step(cfg, x)
-            torch.cuda.synchronize()
-            want = plain_step(cfg, x)
-            err, flipped = compare(got, want)
-            resets = int(want[2][1].sum())
-            print(f"{robot} B={b}: max_abs_err {err:.3e}, envs beyond "
-                  f"tolerance {flipped}, resets {resets}", flush=True)
-            if flipped:
-                raise AssertionError(f"{flipped} of {b} envs disagree")
-            if b >= 1000 and (resets == 0 or int(want[2][2].sum()) == 0):
-                raise AssertionError("inputs fired no reset or time-out")
-            max_err = max(max_err, err)
+            max_err = max(max_err, k1_case(f"K1 {robot} B={b}", cfg, x,
+                                           failures))
             cases[(robot, b)] = (cfg, x)
         b = 1024
         cfg, x = cases[(robot, b)]
         standing = standing_drift_inputs(x, b, robot)
-        got = kernel_step(cfg, standing)
-        torch.cuda.synchronize()
-        err, flipped = compare(got, plain_step(cfg, standing))
-        print(f"{robot} B={b}, standing start: max_abs_err {err:.3e}, envs "
-              f"beyond tolerance {flipped}", flush=True)
-        if flipped:
-            raise AssertionError(f"{flipped} of {b} standing envs disagree")
-        max_err = max(max_err, err)
+        max_err = max(max_err, k1_case(f"K1 {robot} B={b}, standing start",
+                                       cfg, standing, failures, False))
         cases[(robot, b, "standing")] = (cfg, standing)
+    if failures:
+        raise AssertionError("; ".join(failures))
     return max_err, cases
 
 
-def compare_rows(got, want):
-    """Agreement of one (rows, B) float output over every env: (max |kernel
-    - plain|, number of envs beyond FLOAT_TOL)."""
-    import torch
-
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{got.shape}/{got.dtype} vs "
-                             f"{want.shape}/{want.dtype}")
-    if not torch.isfinite(got).all():
-        raise AssertionError("kernel output not finite")
-    err = (got - want).abs()
-    tol = FLOAT_TOL["atol"] + FLOAT_TOL["rtol"] * want.abs()
-    return err.max().item(), int((err > tol).any(0).sum())
+def k1_case(label, cfg, x, failures, moving=True):
+    """K1 against its plain version on `x`; prints the case and returns its
+    max error. `moving` inputs of 1000 envs or more must fire a reset and a
+    time-out."""
+    h = hold(label, lambda: kernel_step(cfg, x), lambda: plain_step(cfg, x),
+             STEP_OUTPUTS, failures, exact=True)
+    b = x["state"].shape[1]
+    resets = int(h.want[2][1].sum())
+    print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond tolerance "
+          f"{h.beyond}, envs not bit-equal {h.differ}, resets {resets}",
+          flush=True)
+    if moving and b >= 1000 and (resets == 0
+                                 or int(h.want[2][2].sum()) == 0):
+        raise AssertionError("inputs fired no reset or time-out")
+    return h.max_err
 
 
 def flat_inputs(robot, b, seed, device):
@@ -600,8 +862,6 @@ def standing_hf_inputs(b):
 def physics_phase(device):
     """K2 and K3 against their plain versions. Every case is checked and
     printed before a disagreement raises."""
-    import torch
-
     from wheeledlab_torch.ops.physics_step import (
         physics_step, physics_step_rows,
     )
@@ -617,18 +877,14 @@ def physics_phase(device):
             x = flat_inputs(robot, b, seed=7 * b + len(robot), device=device)
             for dec in (4, 20):
                 k = dict(dt=0.005, decimation=dec)
-                got = physics_step(**x, **k)
-                torch.cuda.synchronize()
-                want = physics_step_rows(**x, **k)
-                err, bad = compare_rows(got, want)
-                differ = envs_not_bit_equal([got], [want])
-                print(f"K2 {robot} B={b} decimation {dec}: max_abs_err "
-                      f"{err:.3e}, envs beyond tolerance {bad}, envs not "
-                      f"bit-equal {differ}", flush=True)
-                errs["K2"] = max(errs["K2"], err)
-                if bad or differ:
-                    failures.append(f"K2 {robot} B={b} dec {dec}: {bad} "
-                                    f"beyond, {differ} not bit-equal")
+                label = f"K2 {robot} B={b} decimation {dec}"
+                h = hold(label, lambda: physics_step(**x, **k),
+                         lambda: physics_step_rows(**x, **k), ("state",),
+                         failures, exact=True)
+                print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond "
+                      f"tolerance {h.beyond}, envs not bit-equal "
+                      f"{h.differ}", flush=True)
+                errs["K2"] = max(errs["K2"], h.max_err)
                 cases[("K2", robot, b, dec)] = (x, k)
     # K3 is built without FMA contraction and must equal its plain version
     # bit for bit: p = 12 at every width; at 1024 envs p = 30, where the
@@ -646,23 +902,19 @@ def physics_phase(device):
         if touch is not None and b >= 1000 and (touch == 0 or air == 0):
             raise AssertionError(f"K3 inputs: {touch} envs touch the "
                                  f"ground, {air} do not; need both")
-        got = physics_step_hf(**x, **k)
-        torch.cuda.synchronize()
-        want = physics_step_hf_rows(**x, **k)
-        err, bad = compare_rows(got, want)
-        differ = envs_not_bit_equal([got], [want])
-        print(f"K3 {' '.join(map(str, key[1:]))} decimation "
-              f"{k['decimation']} p={k['p']}: max_abs_err {err:.3e}, envs "
-              f"beyond tolerance {bad}, envs not bit-equal {differ}"
+        label = (f"K3 {' '.join(map(str, key[1:]))} decimation "
+                 f"{k['decimation']} p={k['p']}")
+        h = hold(label, lambda: physics_step_hf(**x, **k),
+                 lambda: physics_step_hf_rows(**x, **k), ("state",),
+                 failures, exact=True)
+        print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond tolerance "
+              f"{h.beyond}, envs not bit-equal {h.differ}"
               + ("" if touch is None else f"; {touch} envs start with a "
                  f"wheel in contact, {air} airborne"), flush=True)
-        errs["K3"] = max(errs["K3"], err)
-        if bad or differ:
-            failures.append(f"K3 {key[1:]}: {bad} beyond, {differ} not "
-                            f"bit-equal")
+        errs["K3"] = max(errs["K3"], h.max_err)
         cases[key] = (x, k)
     if failures:
-        raise AssertionError("envs beyond tolerance: " + "; ".join(failures))
+        raise AssertionError("; ".join(failures))
     return errs, cases
 
 
@@ -723,13 +975,16 @@ def per_vehicle_phase(device, phys_cases):
     res, failures = {}, []
 
     def agree(name, got_rows, want_rows):
-        err, bad = compare_rows(got_rows, want_rows)
-        differ = envs_not_bit_equal([got_rows], [want_rows])
-        print(f"{name}: max_abs_err {err:.3e}, envs beyond tolerance {bad}, "
-              f"envs not bit-equal {differ}", flush=True)
+        a = compare_rows(got_rows, want_rows, "state",
+                         sides=("per-vehicle", "kernel"))
+        bad, differ = int(a.beyond.sum()), int(a.differ.sum())
+        print(f"{name}: max_abs_err {a.max_err:.3e}, envs beyond tolerance "
+              f"{bad}, envs not bit-equal {differ}", flush=True)
         if bad:
+            print("\n".join(f"{name} {line}" for line in a.report),
+                  flush=True)
             failures.append(f"{name}: {bad} envs beyond tolerance")
-        return err
+        return a.max_err
 
     # against K2: the same states, params and joint targets
     res["vs_k2_max_abs_err"] = 0.0
@@ -886,7 +1141,7 @@ def envs_not_bit_equal(got, want):
 
     bad = torch.zeros(got[0].shape[1], dtype=torch.bool, device=got[0].device)
     for g, w in zip(got, want):
-        bad |= (g != w).any(0)
+        bad |= (bits(g) != bits(w)).any(0)
     return int(bad.sum())
 
 
@@ -957,47 +1212,50 @@ def rng_kernel_phase(device, cases):
     errs = {"K4": 0.0, "K5a": 0.0, "K5b": 0.0}
     kept, failures = {}, []
 
-    # K5b: the words bit for bit (a uniform is its word's 24 bits, exactly),
-    # the normals within tolerance
+    # K5b: the uniform words and the normals bit for bit
     for b in (4096, 1000, 16, 7, 1):
         for s in (1234, 99):
             seed = torch.tensor([s], dtype=torch.int32, device=device)
-            got_u, got_n = rng_blocks(seed, b)
-            torch.cuda.synchronize()
-            want_u, want_n = philox_blocks(seed, b)
-            words_off = int((got_u != want_u).sum())
-            err, bad = compare_rows(got_n, want_n)
-            print(f"K5b B={b} seed {s}: uniform words that differ "
-                  f"{words_off}, normals max_abs_err {err:.3e}, envs beyond "
-                  f"tolerance {bad}, normals bit-equal "
-                  f"{bool((got_n == want_n).all())}", flush=True)
-            errs["K5b"] = max(errs["K5b"], err)
-            if words_off or bad:
-                failures.append(f"K5b B={b} seed {s}: {words_off} words, "
-                                f"{bad} envs")
+            label = f"K5b B={b} seed {s}"
+            kernel = lambda: rng_blocks(seed, b)
+            plain = lambda: philox_blocks(seed, b)
+            h = hold(label, kernel, plain, ("uniforms", "normals"), failures,
+                     exact=True)
+            print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond "
+                  f"tolerance {h.beyond}, envs not bit-equal {h.differ}",
+                  flush=True)
+            errs["K5b"] = max(errs["K5b"], h.max_err)
             kept[("K5b", b)] = seed
 
     # K4: against Philox rows + the plain step, and against K1 fed K5b's rows
     def k4_case(robot, b, noise, cfg, x, seed, label=""):
         z = without_rows(x)
-        got = fused_drift_step_krng(cfg=cfg, seed=seed, **z)
-        torch.cuda.synchronize()
-        want = plain_step_krng(cfg, x, seed)
-        err, flipped = compare(got, want)
-        uniforms, normals = rng_blocks(seed, b)
-        via_k1 = kernel_step(cfg, {**z, "uniforms": uniforms,
-                                   "normals": normals})
-        differ = envs_not_bit_equal(got, via_k1)
-        resets = int(want[2][1].sum())
-        print(f"K4 {robot} B={b} noise {noise}{label}: max_abs_err "
-              f"{err:.3e}, envs beyond tolerance {flipped}, resets "
-              f"{resets}; envs not bit-equal to K1 fed K5b's rows "
-              f"{differ}", flush=True)
-        errs["K4"] = max(errs["K4"], err)
-        if flipped or differ:
-            failures.append(f"K4 {robot} B={b} noise {noise}{label}: "
-                            f"{flipped} beyond, {differ} not equal to K1")
-        if b >= 1000 and (resets == 0 or int(want[2][2].sum()) == 0):
+        label = f"K4 {robot} B={b} noise {noise}{label}"
+        kernel = lambda: fused_drift_step_krng(cfg=cfg, seed=seed, **z)
+        h = hold(label, kernel, lambda: plain_step_krng(cfg, x, seed),
+                 STEP_OUTPUTS, failures)
+
+        def via_k1():
+            uniforms, normals = rng_blocks(seed, b)
+            return kernel_step(cfg, {**z, "uniforms": uniforms,
+                                     "normals": normals})
+
+        by_k1 = via_k1()
+        differ = envs_not_bit_equal(h.got, by_k1)
+        resets = int(h.want[2][1].sum())
+        print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond tolerance "
+              f"{h.beyond}, envs not bit-equal {h.differ}, resets {resets}; "
+              f"envs not bit-equal to K1 fed "
+              f"K5b's rows {differ}", flush=True)
+        errs["K4"] = max(errs["K4"], h.max_err)
+        if differ:
+            a = agreement(h.got, by_k1, STEP_OUTPUTS, exact=True,
+                          sides=("K4", "K1 fed K5b's rows"))
+            print("\n".join(f"{label} {line}" for line in a.report),
+                  flush=True)
+            repeat_sides(label + " against K1", kernel, via_k1, h.got, by_k1)
+            failures.append(f"{label}: {differ} envs not equal to K1's")
+        if b >= 1000 and (resets == 0 or int(h.want[2][2].sum()) == 0):
             raise AssertionError("inputs fired no reset or time-out")
         return z
 
@@ -1022,46 +1280,256 @@ def rng_kernel_phase(device, cases):
     if int(seed) != int32_shard_offset(1) - 2**31 - 2:
         raise AssertionError(f"rank 1's seed {int(seed)} did not wrap")
     cfg, x = cases[("mushr", POD_RANK_ENVS)]
-    k4_case("mushr", POD_RANK_ENVS, True, cfg, x, seed,
-            f", rank 1's seed {int(seed)}")
+    z = k4_case("mushr", POD_RANK_ENVS, True, cfg, x, seed,
+                f", rank 1's seed {int(seed)}")
+    kept[("K4", "mushr", POD_RANK_ENVS, True)] = (cfg, z, seed)
 
-    # K5a: against K chained plain steps (the check), and against K chained
-    # K1 launches. K5a is built without FMA contraction and K1 with it, so
-    # the two cannot agree bit for bit; over several steps K1's own rounding
-    # can take an env out of the tolerance against the plain version. An env
-    # in which K5a and the K1 chain disagree while the K1 chain agrees with
-    # the plain version is a fault of K5a's loop or slicing.
+    # K5a: against K chained plain steps and against K chained K1 launches,
+    # bit for bit: the three compute the same step in the same order
     for robot in ("mushr", "f1tenth"):
         for b in (16384, 1024, 1000):
             cfg, x = cases[(robot, b)]
             for k in (1, 2, 4, 8):
                 y = multi_inputs(x, k, seed=100 * k + b)
-                got = multi_step(cfg=cfg, k=k, **y)
-                torch.cuda.synchronize()
-                want = multi_step_rows(cfg=cfg, k=k, **y)
-                err, flipped = compare(got, want, MULTI_OUTPUTS)
+                label = f"K5a {robot} B={b} K={k}"
+                kernel = lambda: multi_step(cfg=cfg, k=k, **y)
+                h = hold(label, kernel,
+                         lambda: multi_step_rows(cfg=cfg, k=k, **y),
+                         MULTI_OUTPUTS, failures, exact=True)
                 chain = chained_k1(cfg, y, k)
-                chain_err, off_chain = compare_mask(got, chain,
-                                                    MULTI_OUTPUTS)
-                _, chain_off_plain = compare_mask(chain, want, MULTI_OUTPUTS)
-                unexplained = int((off_chain & ~chain_off_plain).sum())
-                print(f"K5a {robot} B={b} K={k}: max_abs_err {err:.3e}, "
-                      f"envs beyond tolerance {flipped}, envs not bit-equal "
-                      f"{envs_not_bit_equal(got, want)}; against {k} chained "
-                      f"K1 "
-                      f"launches max_abs_err {chain_err:.3e}, envs beyond "
-                      f"{int(off_chain.sum())}, of which the K1 chain "
-                      f"agrees with the plain version in {unexplained}",
-                      flush=True)
-                errs["K5a"] = max(errs["K5a"], err)
-                if flipped or unexplained:
-                    failures.append(f"K5a {robot} B={b} K={k}: {flipped} "
-                                    f"beyond, {unexplained} off the K1 "
-                                    f"chain alone")
+                off_chain = envs_not_bit_equal(h.got, chain)
+                print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond "
+                      f"tolerance {h.beyond}, envs not bit-equal {h.differ}; "
+                      f"envs not bit-equal to {k} chained K1 launches "
+                      f"{off_chain}", flush=True)
+                errs["K5a"] = max(errs["K5a"], h.max_err)
+                if off_chain:
+                    a = agreement(h.got, chain, MULTI_OUTPUTS, exact=True,
+                                  sides=("K5a", "K1 chain"))
+                    print("\n".join(f"{label} {line}" for line in a.report),
+                          flush=True)
+                    repeat_sides(label + " against the K1 chain", kernel,
+                                 lambda: chained_k1(cfg, y, k), h.got, chain)
+                    failures.append(f"{label}: {off_chain} envs not equal to "
+                                    f"the K1 chain's")
                 kept[("K5a", robot, b, k)] = (cfg, y)
     if failures:
-        raise AssertionError("disagreements: " + "; ".join(failures))
+        raise AssertionError("; ".join(failures))
     return errs, kept
+
+
+# launches of the repeat check at the width each kernel takes on the main
+# path's largest configuration: POD_DRIFT_CONFIG on one rank (K1), a rank's
+# half of it (K4), bench.py's 16384 envs (K3)
+REPEATS = {"K1": 64, "K4": 32, "K3": 32}
+PLAIN_REPEATS = 4
+# K1 against its plain version at POD_ENVS: the kernel phase's seed and
+# these more
+EXTRA_SEEDS = 6
+# the widths of the guard-band check: the training width and the largest
+GUARD_WIDTHS = {"K1": (1024, POD_ENVS), "K4": (1024, POD_RANK_ENVS),
+                "K3": (1024, 16384)}
+
+
+def kernel_cases(cases, phys_cases, kept, vis_cases):
+    """Every case of the kernel phases as (kernel, label, envs, launch,
+    inputs), where `launch(**inputs)` calls the kernel's wrapper."""
+    import functools
+
+    from wheeledlab_torch.ops.kernel_rng import rng_blocks
+    from wheeledlab_torch.ops.multi_step import multi_step
+    from wheeledlab_torch.ops.physics_step import physics_step
+    from wheeledlab_torch.ops.physics_step_hf import physics_step_hf
+    from wheeledlab_torch.tasks.drift.fused import (
+        fused_drift_step, fused_drift_step_krng,
+    )
+
+    out = []
+    for key, (cfg, x) in cases.items():
+        out.append(("K1", key, x["state"].shape[1],
+                    functools.partial(fused_drift_step, cfg=cfg), x))
+    for key, (x, k) in phys_cases.items():
+        call = physics_step if key[0] == "K2" else physics_step_hf
+        out.append((key[0], key[1:], x["state"].shape[1],
+                    functools.partial(call, **k), x))
+    for b, (x, k) in vis_cases.items():
+        out.append(("K2", ("visual", b), b,
+                    functools.partial(physics_step, **k), x))
+    for key, v in kept.items():
+        if key[0] == "K4":
+            cfg, z, seed = v
+            out.append(("K4", key[1:], key[2], functools.partial(
+                fused_drift_step_krng, cfg=cfg), {**z, "seed": seed}))
+        elif key[0] == "K5a":
+            cfg, y = v
+            out.append(("K5a", key[1:], key[2], functools.partial(
+                multi_step, cfg=cfg, k=key[3]), y))
+        else:
+            out.append(("K5b", key[1:], key[1], functools.partial(
+                rng_blocks, b=key[1]), {"seed": v}))
+    return out
+
+
+def integrity_phase(device, card, cases, phys_cases, kept, vis_cases):
+    """What an intermittent disagreement between a kernel and its plain
+    version could come from, looked for on purpose: an output element the
+    kernel leaves unwritten or a write past an output's end (poisoned
+    outputs, every case of the kernel phases), a read past either end of an
+    input block or a write into one (guard bands, K1, K3, K4 at their
+    widths in GUARD_WIDTHS), a kernel or a plain version that does not
+    repeat itself (REPEATS launches of K1, K4 and K3 at their largest
+    width; the plain drift step PLAIN_REPEATS times at POD_ENVS), and K1's
+    inputs at POD_ENVS on EXTRA_SEEDS more seeds a robot. One JSON line a
+    check with its counts; every check runs before a fault raises. Returns
+    K1's max error on the extra seeds."""
+    import functools
+
+    import torch
+
+    from wheeledlab_torch.ops.physics_step_hf import physics_step_hf
+    from wheeledlab_torch.tasks.drift.fused import (
+        fused_drift_step, fused_drift_step_krng,
+    )
+
+    phase("kernel integrity (poisoned outputs, guard bands, repeats, seeds)")
+    t_phase = time.perf_counter()
+    every = kernel_cases(cases, phys_cases, kept, vis_cases)
+    failures = []
+
+    # poisoned outputs: every output element must be written, and only they
+    totals = dict(outputs=0, sentinels_left=0, margins_written=0,
+                  not_poisoned=0, not_bit_equal=0)
+    per_kernel = {}
+    for kernel, label, b, launch, x in every:
+        ordinary = as_tuple(launch(**x))
+        counts = poisoned(lambda: launch(**x), ordinary)
+        per_kernel[kernel] = per_kernel.get(kernel, 0) + 1
+        for key, n in counts.items():
+            totals[key] += n
+        if any(n for key, n in counts.items() if key != "outputs"):
+            failures.append(f"poisoned {kernel} {label}: {counts}")
+    print(json.dumps({"check": "poisoned outputs", "cases": per_kernel,
+                      **totals, "card": card}), flush=True)
+
+    # guard bands: each input block in the middle of a buffer with a row of
+    # sentinels on each side
+    guard = dict(cases={}, inputs=0, margins_written=0, inputs_changed=0,
+                 not_bit_equal=0)
+    for kernel, label, b, launch, x in every:
+        if b not in GUARD_WIDTHS.get(kernel, ()):
+            continue
+        ordinary = as_tuple(launch(**x))
+        g = {n: guarded(v, b) for n, v in x.items()}
+        outs = as_tuple(launch(**g))
+        settle(outs)
+        written = sum(margins_written(v) for v in g.values())
+        changed = sum(int((bits(g[n]) != bits(v)).sum())
+                      for n, v in x.items())
+        off = sum(int((bits(o) != bits(w)).sum())
+                  for o, w in zip(outs, ordinary))
+        guard["cases"][kernel] = guard["cases"].get(kernel, 0) + 1
+        guard["inputs"] += len(g)
+        guard["margins_written"] += written
+        guard["inputs_changed"] += changed
+        guard["not_bit_equal"] += off
+        if written or changed or off:
+            failures.append(f"guarded {kernel} {label}: {written} margin "
+                            f"elements written, {changed} input elements "
+                            f"changed, {off} output elements off")
+    print(json.dumps({"check": "guard bands", **guard,
+                      "widths": GUARD_WIDTHS, "card": card}), flush=True)
+
+    # repeats: the same inputs, launch after launch
+    runs = []
+    for robot, k4_seed in (
+            ("mushr", kept[("K4", "mushr", POD_RANK_ENVS, True)][2]),
+            ("f1tenth", torch.tensor([POD_RANK_ENVS], dtype=torch.int32,
+                                     device=device))):
+        cfg, x = cases[(robot, POD_ENVS)]
+        runs.append(("K1", robot, POD_ENVS, functools.partial(
+            fused_drift_step, cfg=cfg, **x)))
+        cfg, x = cases[(robot, POD_RANK_ENVS)]
+        runs.append(("K4", robot, POD_RANK_ENVS, functools.partial(
+            fused_drift_step_krng, cfg=cfg, seed=k4_seed,
+            **without_rows(x))))
+    x, k = phys_cases[("K3", 16384)]
+    runs.append(("K3", "mushr", 16384, functools.partial(
+        physics_step_hf, **x, **k)))
+    series = []
+    for kernel, robot, b, launch in runs:
+        n = REPEATS[kernel]
+        off = repeats(launch, n)
+        series.append({"kernel": kernel, "robot": robot, "envs": b,
+                       "launches": n, "launches_not_bit_equal_to_first": off})
+        if off:
+            failures.append(f"{kernel} {robot} B={b}: {off} of {n} launches "
+                            f"differ from the first")
+    print(json.dumps({"check": "repeated launches", "series": series,
+                      "card": card}), flush=True)
+    plain = []
+    for robot in ("mushr", "f1tenth"):
+        cfg, x = cases[(robot, POD_ENVS)]
+        off = repeats(lambda: plain_step(cfg, x), PLAIN_REPEATS)
+        plain.append({"robot": robot, "envs": POD_ENVS,
+                      "runs": PLAIN_REPEATS, "runs_not_bit_equal_to_first":
+                      off})
+        if off:
+            failures.append(f"plain drift step {robot}: {off} runs differ")
+    print(json.dumps({"check": "repeated plain drift steps on the card",
+                      "series": plain, "card": card}), flush=True)
+
+    # more seeds at the width that once disagreed
+    seeds, max_err, beyond = {}, 0.0, 0
+    for robot in ("mushr", "f1tenth"):
+        seeds[robot] = [POD_ENVS + len(robot)]          # the kernel phase's
+        for i in range(1, EXTRA_SEEDS + 1):
+            seed = POD_ENVS + len(robot) + 1000 * i
+            cfg, x = step_inputs(robot, POD_ENVS, seed=seed, device=device)
+            n_failed = len(failures)
+            max_err = max(max_err, k1_case(f"K1 {robot} B={POD_ENVS} seed "
+                                           f"{seed}", cfg, x, failures))
+            beyond += len(failures) > n_failed
+            seeds[robot].append(seed)
+    print(json.dumps({"check": "K1 against plain on more seeds",
+                      "envs": POD_ENVS, "seeds": seeds,
+                      "cases": sum(map(len, seeds.values())),
+                      "cases_disagreeing": beyond, "max_abs_err": max_err,
+                      "card": card}), flush=True)
+    print(f"kernel integrity phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return max_err
+
+
+def repeats(fn, n):
+    """Calls `fn` `n` times; returns how many calls differ in any bit from
+    the first."""
+    first = as_tuple(fn())
+    off = 0
+    for _ in range(n - 1):
+        again = as_tuple(fn())
+        off += any(not bool((bits(a) == bits(f)).all())
+                   for a, f in zip(again, first))
+    return off
+
+
+def kernel_checks(device, card):
+    """Phase 3's kernel checks: each kernel against its plain version (the
+    kernel phases), then `integrity_phase` on their cases. Returns (max
+    error by kernel, and the cases of K1, of K2 and K3, of K4, K5a and K5b,
+    and of K2 at the visual shape) for the timing phase. In a process of
+    its own after `build_phase`, this is the phase that once saw K1
+    disagree at POD_ENVS."""
+    max_err, cases = kernel_phase(device)
+    phys_err, phys_cases = physics_phase(device)
+    rng_err, kept = rng_kernel_phase(device, cases)
+    vis_err, vis_cases = visual_kernel_phase(device)
+    seeds_err = integrity_phase(device, card, cases, phys_cases, kept,
+                                vis_cases)
+    errs = {"K1": max(max_err, seeds_err), "K2": max(phys_err["K2"], vis_err),
+            "K3": phys_err["K3"], **rng_err}
+    return errs, cases, phys_cases, kept, vis_cases
 
 
 NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
@@ -1739,8 +2207,6 @@ def visual_flat_inputs(b, seed, device):
 def visual_kernel_phase(device):
     """K2 at the visual task's shape (decimation 20, dt 0.01) against its
     plain version, bit for bit, at 512 and 7 envs."""
-    import torch
-
     from wheeledlab_torch.ops.physics_step import (
         physics_step, physics_step_rows,
     )
@@ -1749,23 +2215,18 @@ def visual_kernel_phase(device):
     max_err, cases, failures = 0.0, {}, []
     for b in (VISUAL_ENVS, 7):
         x, k = visual_flat_inputs(b, seed=b + 11, device=device)
-        got = physics_step(**x, **k)
-        torch.cuda.synchronize()
-        want = physics_step_rows(**x, **k)
-        err, bad = compare_rows(got, want)
-        differ = envs_not_bit_equal([got], [want])
+        label = f"K2 visual B={b} decimation {k['decimation']} dt {k['dt']}"
+        h = hold(label, lambda: physics_step(**x, **k),
+                 lambda: physics_step_rows(**x, **k), ("state",), failures,
+                 exact=True)
         # packed rows: mass 0, wheel inertia 35, tire mu x ground 36-39
         p = x["params"]
         span = lambda r: f"{r.min().item():.4g}-{r.max().item():.4g}"
-        print(f"K2 visual B={b} decimation {k['decimation']} dt {k['dt']}: "
-              f"max_abs_err {err:.3e}, envs beyond tolerance {bad}, envs not "
-              f"bit-equal {differ}; mass {span(p[0])}, wheel inertia "
-              f"{span(p[35])}, tire mu x ground {span(p[36:40])}",
-              flush=True)
-        max_err = max(max_err, err)
-        if bad or differ:
-            failures.append(f"K2 visual B={b}: {bad} beyond, {differ} not "
-                            f"bit-equal")
+        print(f"{label}: max_abs_err {h.max_err:.3e}, envs beyond tolerance "
+              f"{h.beyond}, envs not bit-equal {h.differ}; mass "
+              f"{span(p[0])}, wheel inertia {span(p[35])}, tire mu x ground "
+              f"{span(p[36:40])}", flush=True)
+        max_err = max(max_err, h.max_err)
         cases[b] = (x, k)
     if failures:
         raise AssertionError("; ".join(failures))
@@ -2844,11 +3305,8 @@ def main():
     card = device_phase()
     device = "cuda"
     registers = build_phase()
-    max_err, cases = kernel_phase(device)
-    phys_err, phys_cases = physics_phase(device)
+    errs, cases, phys_cases, kept, vis_cases = kernel_checks(device, card)
     per_vehicle = per_vehicle_phase(device, phys_cases)
-    rng_err, kept = rng_kernel_phase(device, cases)
-    vis_err, vis_cases = visual_kernel_phase(device)
     action_map_phase()
     render_frac = render_phase(device)
     rnn_forward_d = recurrent_forward_phase(device)
@@ -2898,7 +3356,7 @@ def main():
     kernels = [
         kernel_line("fused_drift_step", "wheeledlab_torch/csrc/fused_drift.cu",
                     "wheeledlab_tpu/tasks/drift/fused.py:488", k1_launches,
-                    max_err, k("K1"), 1024, 16384,
+                    errs["K1"], k("K1"), 1024, 16384,
                     registers.get("fused_drift"),
                     train_iteration_ms=drift_ms,
                     **{f"train_bench_{c.lower()}_{key}": v
@@ -2924,7 +3382,7 @@ def main():
                     registers_per_thread=registers_per_thread(
                         registers, "fused_drift")),
         kernel_line("physics_step", "wheeledlab_torch/csrc/physics_step.cu",
-                    K2_REPLACES, k2_launches, max(phys_err["K2"], vis_err),
+                    K2_REPLACES, k2_launches, errs["K2"],
                     k("K2"), 16, 16384, registers.get("physics_step"),
                     ms_1024=k("K2")[1024]["ms"],
                     graph_ms_1024=k("K2")[1024]["graph_ms"],
@@ -2949,7 +3407,7 @@ def main():
                     per_vehicle_max_abs_err=per_vehicle["vs_k2_max_abs_err"]),
         kernel_line("physics_step_hf",
                     "wheeledlab_torch/csrc/physics_step_hf.cu", K3_REPLACES,
-                    k3_launches, phys_err["K3"], k("K3"), 1024, 16384,
+                    k3_launches, errs["K3"], k("K3"), 1024, 16384,
                     registers.get("physics_step_hf"),
                     train_iteration_ms=elev_ms,
                     resume_launches=resume["rss_elev_h100"][0],
@@ -2971,7 +3429,7 @@ def main():
                         registers, "physics_step_hf")),
         kernel_line("fused_drift_step_krng",
                     "wheeledlab_torch/csrc/fused_drift_krng.cu", K4_REPLACES,
-                    k4_launches, rng_err["K4"], k("K4"), 1024, 16384,
+                    k4_launches, errs["K4"], k("K4"), 1024, 16384,
                     registers.get("fused_drift_krng"),
                     train_iteration_ms=krng_ms,
                     **{k: v for k, v in pod.items()
@@ -2986,13 +3444,13 @@ def main():
                     registers_per_thread=registers_per_thread(
                         registers, "fused_drift_krng")),
         kernel_line("multi_step", "wheeledlab_torch/csrc/multi_step.cu",
-                    K5A_REPLACES, k5a_launches, rng_err["K5a"], k("K5a"),
+                    K5A_REPLACES, k5a_launches, errs["K5a"], k("K5a"),
                     16384, 1024, registers.get("multi_step"), k=8,
                     **extra(k("K5a")[16384], "ms_per_control_step",
                             "graph_ms_per_control_step"),
                     limiter_probe=probe),
         kernel_line("rng_blocks", "wheeledlab_torch/csrc/rng_blocks.cu",
-                    K5B_REPLACES, k5b_launches, rng_err["K5b"], k("K5b"),
+                    K5B_REPLACES, k5b_launches, errs["K5b"], k("K5b"),
                     4096, 16384, registers.get("rng_blocks"),
                     library="torch.rand (12, B) + torch.randn (14, B): the "
                             "same distributions, not the same bits",

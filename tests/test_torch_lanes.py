@@ -97,14 +97,13 @@ class TestGroupingConstants:
     def test_sums_are_in_wheel_order(self):
         """Nothing in the build or the shared headers may reorder or
         approximate: no butterfly shuffles, no fast division, no fast-math
-        flag, and no FMA contraction where bit equality is held."""
+        flag, and no FMA contraction: every kernel is held to its plain
+        version bit for bit."""
         for hdr in ("substep.cuh", "substep_hf.cuh", "drift_step.cuh"):
             assert "__shfl_xor" not in source(hdr)
             assert "__fdividef" not in source(hdr)
-        assert "use_fast_math" not in " ".join(
-            build.NVCC_FLAGS + sum(build.SOURCE_FLAGS.values(), []))
-        assert build.SOURCE_FLAGS["physics_step_hf"] == ["--fmad=false"]
-        assert build.SOURCE_FLAGS["multi_step"] == ["--fmad=false"]
+        assert "use_fast_math" not in " ".join(build.NVCC_FLAGS)
+        assert "--fmad=false" in build.NVCC_FLAGS
 
 
 def lane_param_rows(w):

@@ -29,7 +29,7 @@
 // warps a block, the tail groups masked at their stores; any B); the K steps
 // are a runtime loop over `drift_step.cuh::drift_step` with its outputs
 // switched off, so the step's code exists once whatever K is. Built without
-// FMA contraction (`ops/build.py::SOURCE_FLAGS`), so that K chained steps
+// FMA contraction (`ops/build.py::NVCC_FLAGS`), so that K chained steps
 // match the plain version bit for bit: the six force sums of a substep are
 // taken in wheel order in every lane (`substep.cuh::wheel_sum`).
 #include <cuda_runtime.h>

@@ -9,7 +9,7 @@
 // `sim/soa.py::substep_soa` loop). The generic manager step runs it for flat
 // tasks without a fused step: the drift play variants at decimation 4 and the
 // visual task at decimation 20. It is built without FMA contraction
-// (`ops/build.py::SOURCE_FLAGS`) and matches its plain version bit for bit.
+// (`ops/build.py::NVCC_FLAGS`) and matches its plain version bit for bit.
 //
 // Bound: per env it reads state 21, params 46, steer targets 2 and wheel
 // targets 4 words and writes state 21: 94 words, 376 bytes. Its arithmetic is

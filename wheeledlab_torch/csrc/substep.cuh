@@ -41,10 +41,9 @@
 // lane of a warp reaches every shuffle.
 //
 // Float behaviour: precise sinf/cosf/tanhf/sqrtf and IEEE division (no
-// --use_fast_math). Expressions keep the reference's order of operations; the
-// one difference left is nvcc's default FMA contraction, which moves results
-// by a few ulp against the plain version (a source built with --fmad=false
-// matches it bit for bit).
+// --use_fast_math). Expressions keep the reference's order of operations, and
+// every source is built without FMA contraction (`ops/build.py::NVCC_FLAGS`),
+// so a kernel matches its plain version bit for bit.
 #pragma once
 
 #include <math.h>
