@@ -57,6 +57,19 @@ def apply_actuators(params: VehicleParams,
     )
 
 
+def mushr_params(actuators: ActuatorGroupCfg = HOUND_SUS_2WD_ACTUATOR_CFG
+                 ) -> VehicleParams:
+    """The MuSHR's params under `actuators` (default the rear-drive
+    group of the drift task)."""
+    return apply_actuators(default_mushr_params(), actuators)
+
+
+def f1tenth_params(actuators: ActuatorGroupCfg = F1TENTH_4WD_ACTUATOR_CFG
+                   ) -> VehicleParams:
+    """The F1Tenth's params under `actuators`."""
+    return apply_actuators(default_f1tenth_params(), actuators)
+
+
 MUSHR_CFG = apply_actuators(default_mushr_params(), HOUND_ACTUATOR_CFG)
 MUSHR_SUS_CFG = apply_actuators(default_mushr_params(),
                                 HOUND_SUS_ACTUATOR_CFG)   # 4WD, elevation

@@ -181,6 +181,13 @@ class EnvState:
             return self.vehicle_mem
         return unpack_state(self.vehicle_mem)
 
+    def with_vehicle(self, vehicle: VehicleState) -> "EnvState":
+        """This state with `vehicle` in place of its own, in the carry's
+        representation."""
+        if isinstance(self.vehicle_mem, VehicleState):
+            return dataclasses.replace(self, vehicle_mem=vehicle)
+        return dataclasses.replace(self, vehicle_mem=pack_state(vehicle))
+
     def to_dict(self) -> dict:
         """The fields as tensors and dicts of tensors, which
         `torch.load(..., weights_only=True)` restores (`from_dict`)."""

@@ -1,0 +1,1 @@
+from .task import DriftTaskCfg, make_drift_env, make_drift_task  # noqa: F401

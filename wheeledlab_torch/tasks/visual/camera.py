@@ -174,6 +174,13 @@ class ColorMapAtlas:
         return (torch.clamp(ir * s, max=self.map_rows - p),
                 torch.clamp(ic * s, max=self.map_cols - p))
 
+    def sample_patch(self, sr: torch.Tensor, sc: torch.Tensor,
+                     xy: torch.Tensor) -> torch.Tensor:
+        """`sample_patch_xy` of points xy (B, ..., 2) -> (B, ...). The
+        reference's takes the window's cells as an argument; here the
+        window is read in place from `grid`."""
+        return self.sample_patch_xy(sr, sc, xy[..., 0], xy[..., 1])
+
     def sample_patch_xy(self, sr: torch.Tensor, sc: torch.Tensor,
                         x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """`ColorMap.sample` restricted to the window at (sr, sc) (B,), of

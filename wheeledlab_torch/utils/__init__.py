@@ -15,3 +15,9 @@ decision:
 - `utils/rng.py` (the TPU's `rbg` PRNG): PyTorch's generators are Philox on
   CUDA already; `TrainCfg.fast_prng` stays an ignored field.
 """
+
+from . import math  # noqa: F401
+from .config import (  # noqa: F401
+    RUN_CONFIGS, TASKS, Registry, apply_overrides, configclass,
+    override, parse_cli_overrides, to_dict,
+)
