@@ -107,7 +107,10 @@ printing its final line:
              below) must apply the policy through
              `fused_actor_critic_apply` (its call counter, reset and read
              like the launch counters: 447 calls in 3 iterations), the
-             drift and recurrent runs never.
+             drift and recurrent runs never. One JSON line gives the first
+             minibatch's KL estimate of each iteration of the four runs (a
+             measurement: is it 0 on the card where the new policy is the
+             old one, or a rounding residue as XLA's is?).
    fused   — the fused first layer against the unfused forward on the card
              at 1024 x 689 and 512 x 3208, float32 within 1e-5 and bfloat16
              within the bound of tests/test_torch_fused_input_layer.py;
@@ -123,7 +126,8 @@ printing its final line:
              every env step (384 launches), with finite losses and the LSTM
              weights moved; one iteration's rollout and update timed apart
              and one minibatch update's device time and launches
-             (torch.profiler); RSS_ELEV_CONFIG with
+             (torch.profiler), and the first minibatch's KL line of the
+             four iterations; RSS_ELEV_CONFIG with
              agent.compute_dtype=bfloat16 beside float32, 3 iterations a
              run in turns (float32, bfloat16, bfloat16, float32; 384 K3
              launches each, obs stored in the run's dtype).
@@ -1562,14 +1566,36 @@ def check_launches(path, got, want):
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
 
+@contextlib.contextmanager
+def minibatch_kls():
+    """Every `minibatch_update`'s KL estimate while open, in call order, as
+    the tensors it returned: read once the caller is done, so that no
+    minibatch waits on the host for them."""
+    from wheeledlab_torch.rl import ppo
+
+    kls, update = [], ppo.PPO.minibatch_update
+
+    def spy(self, batch):
+        metrics = update(self, batch)
+        kls.append(metrics[4])
+        return metrics
+
+    ppo.PPO.minibatch_update = spy
+    try:
+        yield kls
+    finally:
+        ppo.PPO.minibatch_update = update
+
+
 def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
-              overrides=(), fused=False):
+              overrides=(), fused=False, first_kls=None):
     """3 full-width training iterations of `config` (`envs` envs, with the
     (key, value) `overrides`); `kernel` must carry every env step and no
     other kernel may launch. With `fused` every policy apply (each rollout
     step, each minibatch update, the bootstrap value) must go through
-    `fused_actor_critic_apply`; without it none may. Returns (launches,
-    iteration ms)."""
+    `fused_actor_critic_apply`; without it none may. With `first_kls` (a
+    dict), `first_kls["config/run_name"]` gets the first minibatch's KL
+    estimate of each iteration. Returns (launches, iteration ms)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
@@ -1591,9 +1617,15 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
             cfg.agent.num_mini_batches) == (envs, 128, 5, 4)
     reset_launches()
     networks.FUSED_CALLS = 0
-    state, last = train(cfg)
+    with minibatch_kls() as kls:
+        state, last = train(cfg)
     torch.cuda.synchronize()
     launches = read_launches()
+    if first_kls is not None:
+        per_iteration = (cfg.agent.num_learning_epochs
+                         * cfg.agent.num_mini_batches)
+        first_kls[f"{config}/{run_name}"] = [float(k) for k in
+                                             kls[::per_iteration]]
     want = {**NO_LAUNCHES, kernel: iters * cfg.agent.num_steps_per_env}
     check_launches(config, launches, want)
     agent = cfg.agent
@@ -1623,19 +1655,32 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
     return launches[kernel], iter_ms
 
 
-def train_phase(device, logs):
+def print_first_kls(phase_name, first_kls, card):
+    """The measurement line of the first minibatch's KL estimate of each
+    iteration: where the new policy is the old one, is it 0 on the card or
+    a rounding residue, as XLA's is on the CPU (+-6e-8)? Not a check."""
+    print(json.dumps({"name": "first-minibatch KL estimate of each "
+                              "iteration", "phase": phase_name,
+                      **first_kls, "card": card}), flush=True)
+
+
+def train_phase(device, logs, card):
     phase("train")
-    drift = train_run(device, logs, "RSS_DRIFT_CONFIG", "smoke", 14, "K1")
+    kls = {}
+    drift = train_run(device, logs, "RSS_DRIFT_CONFIG", "smoke", 14, "K1",
+                      first_kls=kls)
     # the opt-in route: the variable is read when the env is built
     os.environ["WHEELEDLAB_KERNEL_RNG"] = "1"
     try:
-        krng = train_run(device, logs, "RSS_DRIFT_CONFIG", "krng", 14, "K4")
+        krng = train_run(device, logs, "RSS_DRIFT_CONFIG", "krng", 14, "K4",
+                         first_kls=kls)
     finally:
         del os.environ["WHEELEDLAB_KERNEL_RNG"]
     elev = train_run(device, logs, "RSS_ELEV_CONFIG", "elev", 689, "K3",
-                     fused=True)
+                     fused=True, first_kls=kls)
     visual = train_run(device, logs, "RSS_VISUAL_CONFIG", "visual", 3208,
-                       "K2", envs=VISUAL_ENVS, fused=True)
+                       "K2", envs=VISUAL_ENVS, fused=True, first_kls=kls)
+    print_first_kls("train", kls, card)
     return drift, krng, elev, visual
 
 
@@ -1903,12 +1948,13 @@ def recurrent_forward_phase(device):
     return max(d.values())
 
 
-def recurrent_train_phase(device, logs):
+def recurrent_train_phase(device, logs, card):
     """3 RSS_DRIFT_RNN_CONFIG iterations at 1024 envs (384 K1 launches,
     finite losses, the LSTM weights moved); then one iteration's rollout
     and update timed apart (wall clock, synchronized) and one minibatch
-    update's device time (torch.profiler). Returns (launches, iteration ms,
-    split)."""
+    update's device time (torch.profiler). Prints the first minibatch's KL
+    estimate of the 3 iterations and of the timed one. Returns (launches,
+    iteration ms, split)."""
     import torch
 
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
@@ -1917,8 +1963,9 @@ def recurrent_train_phase(device, logs):
     from wheeledlab_torch.utils.config import RUN_CONFIGS
 
     phase("recurrent train")
+    kls = {}
     launches, iter_ms = train_run(device, logs, "RSS_DRIFT_RNN_CONFIG", "rnn",
-                                  14, "K1")
+                                  14, "K1", first_kls=kls)
     cfg = RUN_CONFIGS.get("RSS_DRIFT_RNN_CONFIG")
     ck = torch.load(os.path.join(logs, "rnn", "checkpoints", "3.pt"),
                     map_location="cpu", weights_only=True)
@@ -1949,9 +1996,12 @@ def recurrent_train_phase(device, logs):
                traj["value"], returns, norm_adv, traj["mean"], traj["std"])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    learner.update_epochs(h0, dataset)
+    with minibatch_kls() as timed_kls:
+        learner.update_epochs(h0, dataset)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
+    kls["RSS_DRIFT_RNN_CONFIG/timed"] = [float(timed_kls[0])]
+    print_first_kls("recurrent train", kls, card)
     mb = cfg.num_envs // cfg.agent.num_mini_batches
     cols = torch.arange(mb, device=device)
     batch = ({c: [(a[cols], b[cols]) for a, b in layers]
@@ -3313,8 +3363,9 @@ def main():
     with tempfile.TemporaryDirectory() as logs:
         ((k1_launches, drift_ms), (k4_launches, krng_ms),
          (k3_launches, elev_ms), (vis_launches, vis_ms)) = train_phase(
-            device, logs)
-        rnn_launches, rnn_ms, rnn_split = recurrent_train_phase(device, logs)
+            device, logs, card)
+        rnn_launches, rnn_ms, rnn_split = recurrent_train_phase(device, logs,
+                                                                card)
         bf16_ms = bf16_train_phase(device, logs)
         print(json.dumps({"name": "RSS_ELEV_CONFIG iteration ms, in turns",
                           **bf16_ms, "card": card}), flush=True)

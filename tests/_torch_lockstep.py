@@ -3,7 +3,8 @@ learner's own random draws: the helpers of tests/test_torch_lockstep*.py.
 
 How it works:
 
-1. `JaxRun` runs JAX's `make_ppo` `init_fn` and `train_iteration`, jitted as
+1. `JaxRun` runs JAX's `make_ppo` `init_fn` and `train_iteration`
+   (`make_ppo_recurrent`'s for the recurrent cases), jitted as
    the runner jits them, with `jax.random.normal`, `uniform`, `randint`
    and `permutation` (the draws the package makes) wrapped for the length
    of the trace. A
@@ -17,7 +18,9 @@ How it works:
    at minval 0 and maxval 1, the same bits before scaling. The same kind
    of callback records what the iteration computes between its modules:
    each env step's outputs, the rollout's transitions, GAE's outputs, each
-   minibatch's losses and learning rate.
+   minibatch's losses and learning rate; for the recurrent learner also
+   each policy step's carries, the window-start hidden, and each
+   minibatch's columns, forward and learner state (`instrument_jax`).
 2. `PortReplay` replaces `torch.rand`, `randn`, `randint` and `randperm`
    while the port runs. A call made from the port finds its row in
    `SITES` by its package frames and returns the next draw recorded at the
@@ -29,14 +32,23 @@ How it works:
 3. `run_lockstep` then runs the port's own `PPO.train_iteration` from
    JAX's initial state, with the same capture wrappers on its env and
    learner instances (`env.step`, `rollout`, `compute_gae`,
-   `minibatch_update`, `ppo_loss`), and `compare` holds every captured
+   `minibatch_update`, `ppo_loss`; the recurrent model's `step`), and
+   `compare` holds every captured
    value to JAX's. Nothing in `wheeledlab_torch/` changes for it: the port
    has no seam. `feed` says what of JAX's the port is handed after the
    start: nothing ("free"), or each env step's starting state and its
    outputs for the learner ("data"), where the env amplifies the two
    packages' rounding until envs part. Where the new
    policy is the old one, a KL residue of JAX's may be handed over
-   (`KL_RESIDUE`).
+   (`KL_RESIDUE`). `restart` starts each later iteration from JAX's
+   state, `learner_feed` each minibatch from JAX's learner state.
+4. The recurrent cases record JAX's side in a process of its own
+   (`record_in_subprocess`, `_torch_lockstep_recorder.py`, which pickles
+   `record_jax`'s `JaxRecord`), with `--xla_allow_excess_precision=false`
+   appended to `XLA_FLAGS`: XLA then rounds the LSTM cells' bfloat16
+   intermediates where flax declares them, as the port does. XLA reads the
+   flag when JAX's backend starts, and a test worker has started it
+   already, so the worker's own environment stays as it is.
 
 The site-to-site table. A site is the package frames of the draw's call,
 innermost first ("a <- b": `a` is called from `b`), as `package_stack`
@@ -50,8 +62,10 @@ and how many draws each.
 
 | site | JAX draw | port draw | replay |
 |---|---|---|---|
-| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+8` | output |
+| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+8 <- rl/ppo.py:PPO.rollout+11` | output |
 | epoch_perm | `rl/ppo.py:358` | `rl/ppo.py:PPO.update_epochs+14` | output |
+| rnn_action_noise | `rl/recurrent.py:242` | `rl/ppo.py:PPO.act_and_step+8 <- rl/recurrent.py:RecurrentPPO.rollout+14` | output |
+| rnn_env_perm | `rl/recurrent.py:328` | `rl/recurrent.py:RecurrentPPO.update_epochs+12` | output |
 | drift_step_uniforms | `tasks/drift/fused.py:618` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+23` | unit |
 | drift_step_normals | `tasks/drift/fused.py:619` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+25` | output |
 | drift_dr_buckets | `tasks/drift/task.py:283` | `tasks/drift/task.py:_uniform+1 <- tasks/drift/task.py:make_drift_task.init_params+6` | unit |
@@ -80,6 +94,11 @@ and how many draws each.
 | visual_aug_contrast | `tasks/visual/augment.py:52` | `tasks/visual/augment.py:augmentation_draws.u+1 <- tasks/visual/augment.py:augmentation_draws+10` | unit |
 | visual_aug_sigma | `tasks/visual/augment.py:54` | `tasks/visual/augment.py:augmentation_draws.u+1 <- tasks/visual/augment.py:augmentation_draws+11` | unit |
 | visual_obs_noise | `tasks/visual/task.py:244 <- tasks/visual/task.py:246` | `tasks/visual/task.py:make_visual_task.observe.<lambda>+0 <- tasks/visual/task.py:make_visual_task.observe+18` | unit |
+
+The recurrent rollout's action noise shares its innermost port frame with
+the MLP rollout's; the two rows tell them apart by the caller's frame
+(`PPO.rollout` or `RecurrentPPO.rollout`). `rnn_env_perm` is drawn once an
+iteration and shared by its epochs, on both sides.
 
 A site may draw more than once a step: `command_*` at the timed resample
 and again for the envs that reset, `visual_obs_noise` three times on one
@@ -262,22 +281,61 @@ def instrument_jax(run: JaxRun, jenv, train_iteration,
     wrapped on the instance; `rollout`, `compute_gae` and `minibatch_update`
     are the closures `make_ppo` built, replaced in the cells that
     `train_iteration` and `update_epochs` read them from. `what` names the
-    tags to emit."""
+    tags to emit.
+
+    The recurrent learner's (`make_ppo_recurrent`) also emits each policy
+    step's carries, the `reset_prev` it took and its outputs (`"carry"`:
+    the T rollout steps, then the bootstrap's), the window-start hidden
+    (`"h0"`, from `rollout`), and with each minibatch its actions
+    (`action`, [T, mb_envs, A], which name its env columns), its forward's
+    means and values (`seq_apply` from the parameters before the step,
+    outside the gradient: XLA compiles it apart from the gradient's own
+    forward, which rounds where it does at float32 level) and the
+    learner state after the step (`params`, `mu`, `nu`, `count`); its
+    `step_apply` is replaced in the cell that `rollout` and `policy_apply`
+    read it from."""
+    # make_ppo_recurrent's rollout reads the policy through `step_apply`
+    recurrent = "step_apply" in _cell(
+        train_iteration, "rollout").cell_contents.__code__.co_freevars
     if "minibatch" in what:
         update_epochs = _cell(train_iteration, "update_epochs").cell_contents
         cell = _cell(update_epochs, "minibatch_update")
         mb = cell.cell_contents
 
+        if recurrent:
+            loss_fn = _cell(mb, "grad_fn").cell_contents.__wrapped__
+            seq_apply = _cell(loss_fn, "seq_apply").cell_contents
+
         def mb_w(carry, batch):
             (params, opt_state), metrics = mb(carry, batch)
-            run.emit("minibatch", dict(
-                metrics=metrics,
-                lr=opt_state[1].hyperparams["learning_rate"]))
+            out = dict(metrics=metrics,
+                       lr=opt_state[1].hyperparams["learning_rate"])
+            if recurrent:
+                h0, traj = batch[:2]
+                _, mean, _, value = seq_apply(carry[0], h0, traj.obs,
+                                              traj.reset)
+                adam = opt_state[1].inner_state[0]
+                out.update(action=traj.action, mean=mean, value=value,
+                           params=params, mu=adam.mu, nu=adam.nu,
+                           count=adam.count)
+            run.emit("minibatch", out)
             return (params, opt_state), metrics
 
         cell.cell_contents = mb_w
     if "step" not in what:
         return
+    if recurrent:
+        cell = _cell(_cell(train_iteration, "rollout").cell_contents,
+                     "step_apply")
+        step_apply = cell.cell_contents
+
+        def step_apply_w(params, hidden, obs, reset_prev):
+            res = step_apply(params, hidden, obs, reset_prev)
+            run.emit("carry", dict(hidden=res[0], reset_prev=reset_prev,
+                                   mean=res[1], std=res[2], value=res[3]))
+            return res
+
+        cell.cell_contents = step_apply_w
     step = jenv.step
 
     def env_step(state, action):
@@ -294,7 +352,11 @@ def instrument_jax(run: JaxRun, jenv, train_iteration,
 
     def rollout_w(state):
         res = rollout(state)
-        run.emit("traj", res[2]._asdict())
+        if recurrent:
+            run.emit("traj", res[5]._asdict())
+            run.emit("h0", res[4])
+        else:
+            run.emit("traj", res[2]._asdict())
         return res
 
     cell.cell_contents = rollout_w
@@ -427,6 +489,35 @@ def _np(x):
     return np.array(x)
 
 
+def port_learner(learner) -> dict:
+    """The learner's parameters (state-dict names), Adam moments and step
+    count, and learning rate, as numpy."""
+    named = dict(learner.model.named_parameters())
+    opt = learner.optimizer.state
+    moments = lambda key: {n: _np(opt[p][key]) for n, p in named.items()}
+    return dict(params={k: _np(v) for k, v in named.items()},
+                mu=moments("exp_avg"), nu=moments("exp_avg_sq"),
+                count=int(next(iter(opt.values()))["step"]),
+                lr=float(learner.lr))
+
+
+def load_jax_learner(learner, state: dict):
+    """Put a JAX learner state into the port's learner: `state` holds the
+    flax-shaped `params`, `mu` and `nu`, and `count` and `lr` (a snapshot,
+    or what a minibatch event holds after its step)."""
+    named = dict(learner.model.named_parameters())
+    model = lambda tree: {k: torch.from_numpy(v) for k, v in jax_as_port(
+        tree, learner.cfg.activation).items()}
+    params, mu, nu = (model(state[k]) for k in ("params", "mu", "nu"))
+    with torch.no_grad():
+        for k, p in named.items():
+            p.copy_(params[k])
+            learner.optimizer.state[p] = dict(
+                step=torch.tensor(float(state["count"])),
+                exp_avg=mu[k].clone(), exp_avg_sq=nu[k].clone())
+        learner.lr.copy_(torch.tensor(state["lr"]))
+
+
 # Where the new policy is the old one (the first minibatch of an
 # iteration), the KL estimate is 0 up to rounding. JAX's is a residue of
 # +-6e-8 there (its rollout and its update compile the policy's forward
@@ -440,7 +531,8 @@ KL_RESIDUE = 1e-6
 
 def instrument_port(learner, phases: List[list], feed: deque = None,
                     what=("step", "traj", "gae", "minibatch"),
-                    kl_feed: deque = None, residues: list = None):
+                    kl_feed: deque = None, residues: list = None,
+                    learner_feed: deque = None):
     """The port's counterpart of `instrument_jax`, on the learner and env
     instances: the same tags, values as numpy, appended to `phases[-1]`.
     With `feed`, each env step takes the next `(state, out)` of `feed`:
@@ -451,9 +543,15 @@ def instrument_port(learner, phases: List[list], feed: deque = None,
     (JAX's KL estimate of each minibatch, in order), a minibatch whose two
     estimates are residues on either side of 0 (`KL_RESIDUE`) takes JAX's;
     it is appended to `residues` as (phase, minibatch, JAX's, the port's).
+    With `learner_feed`, each minibatch starts from the next learner state
+    of it (`load_jax_learner`). The recurrent learner's minibatches also
+    record their actions and the learner state after the step
+    (`port_learner`), and its policy steps their carries (`"carry"`) and
+    its rollout the window-start hidden (`"h0"`), as `instrument_jax`'s.
     """
     from wheeledlab_torch.convert import env_state_from_jax
     from wheeledlab_torch.envs.env import StepOutput
+    from wheeledlab_torch.rl.recurrent import RecurrentPPO
 
     if kl_feed is not None:
         ppo_loss = learner.ppo_loss
@@ -470,16 +568,45 @@ def instrument_port(learner, phases: List[list], feed: deque = None,
 
         learner.ppo_loss = ppo_loss_w
 
+    recurrent = isinstance(learner, RecurrentPPO)
+    forward = {}
+    if recurrent and "minibatch" in what:
+        # the minibatch's forward, as `RecurrentPPO.loss` hands it over
+        ppo_loss_f = learner.ppo_loss
+
+        def ppo_loss_rec(mean, std, value, *rest):
+            forward.update(mean=_np(mean), value=_np(value))
+            return ppo_loss_f(mean, std, value, *rest)
+
+        learner.ppo_loss = ppo_loss_rec
     if "minibatch" in what:
         mb = learner.minibatch_update
 
         def mb_w(batch):
+            if learner_feed is not None:
+                load_jax_learner(learner, learner_feed.popleft())
             metrics = mb(batch)
-            phases[-1].append(("minibatch", dict(metrics=_np(metrics),
-                                                 lr=_np(learner.lr))))
+            out = dict(metrics=_np(metrics), lr=_np(learner.lr))
+            if recurrent:
+                out.update(action=_np(batch[3]), **forward,
+                           **port_learner(learner))
+            phases[-1].append(("minibatch", out))
             return metrics
 
         learner.minibatch_update = mb_w
+    if "step" in what and recurrent:
+        # the policy's steps (the rollout's, then the bootstrap's), on the
+        # model instance: `rollout` keeps its carries to itself
+        model_step = learner.model.step
+
+        def model_step_w(hidden, obs, reset_prev):
+            res = model_step(hidden, obs, reset_prev)
+            phases[-1].append(("carry", dict(
+                hidden=flat_hidden(res[0]), reset_prev=_np(reset_prev),
+                mean=_np(res[1]), std=_np(res[2]), value=_np(res[3]))))
+            return res
+
+        learner.model.step = model_step_w
     if "step" in what:
         env = learner.env
         step = env.step
@@ -508,8 +635,11 @@ def instrument_port(learner, phases: List[list], feed: deque = None,
 
         def rollout_w(state, capture_traj=False):
             res = rollout(state, capture_traj)
-            phases[-1].append(("traj", {k: _np(v) for k, v in res[2].items()
+            traj = res[5] if recurrent else res[2]
+            phases[-1].append(("traj", {k: _np(v) for k, v in traj.items()
                                         if not k.startswith("traj/")}))
+            if recurrent:
+                phases[-1].append(("h0", flat_hidden(res[4])))
             return res
 
         learner.rollout = rollout_w
@@ -522,6 +652,14 @@ def instrument_port(learner, phases: List[list], feed: deque = None,
             return res
 
         learner.compute_gae = gae_w
+
+
+def flat_hidden(hidden) -> Dict[str, np.ndarray]:
+    """A hidden tree of either package ({chain: [(c, h) a layer]}) as
+    numpy arrays under the names "actor0/c", "actor0/h", ..."""
+    return {f"{chain}{i}/{n}": _np(x) for chain in ("actor", "critic")
+            for i, pair in enumerate(hidden[chain])
+            for n, x in zip("ch", pair)}
 
 
 def split_events(events):
@@ -541,20 +679,26 @@ ELEV_OVERRIDES = dict(terrain_extent=20.0, num_mounds=10, spawn_range=8.0,
                       goal_range=8.0)
 VISUAL_MAP = dict(map_rows=100, map_cols=100, env_rows=20, env_cols=20,
                   group_rows=5, group_cols=5)
+# 0.1 s episodes (5 steps) and wide spawns: time-outs, the bootstrap
+# `reward + gamma * V * time_out`, terminations, resets and the curriculum
+# fire within the two iterations
+RESETS = dict(episode_length_s=0.1, pos_noise=1.0)
 # task, envs, run config whose agent it takes, task overrides
 CASES = {
     "drift": ("MushrDriftRL-v0", 128, "RSS_DRIFT_CONFIG", {}),
-    # 0.1 s episodes (5 steps) and wide spawns: time-outs, the bootstrap
-    # `reward + gamma * V * time_out`, terminations, resets and the
-    # curriculum fire within the two iterations
-    "drift_resets": ("MushrDriftRL-v0", 128, "RSS_DRIFT_CONFIG",
-                     dict(episode_length_s=0.1, pos_noise=1.0)),
+    "drift_resets": ("MushrDriftRL-v0", 128, "RSS_DRIFT_CONFIG", RESETS),
+    "f1tenth": ("F1TenthDriftRL-v0", 128, "F1TENTH_DRIFT_CONFIG", {}),
+    "drift_rnn": ("MushrDriftRL-v0", 128, "RSS_DRIFT_RNN_CONFIG", {}),
+    "drift_rnn_resets": ("MushrDriftRL-v0", 128, "RSS_DRIFT_RNN_CONFIG",
+                         RESETS),
     "elevation": ("MushrElevationRL-v0", 128, "RSS_ELEV_CONFIG",
                   ELEV_OVERRIDES),
     "visual": ("MushrVisualRL-v0", 64, "RSS_VISUAL_CONFIG", VISUAL_MAP),
 }
 SMALL_PPO = dict(num_steps_per_env=8, num_learning_epochs=2,
                  num_mini_batches=2)
+# the recurrent cases: RSS_DRIFT_RNN_CONFIG's one layer, cut to 32 wide
+RNN_PPO = dict(SMALL_PPO, rnn_hidden_size=32)
 
 
 def to_np(tree):
@@ -592,25 +736,36 @@ def jax_env(task: str, num_envs: int, overrides: dict, route: str):
     return env
 
 
-def port_env(task: str, num_envs: int, overrides: dict, jenv):
-    """The port's env on the CPU with JAX's build-time draws handed over:
-    the drift track's reset poses, the elevation terrain."""
+def build_draws(task: str, jenv) -> dict:
+    """JAX's build-time draws that the port's env is handed, as numpy:
+    the drift track's reset poses (`ref_poses`), the elevation terrain
+    (`terrain`)."""
+    from wheeledlab_tpu.tasks.drift.task import reference_track_poses
+
+    if task.endswith("DriftRL-v0"):
+        jcfg = jenv.task_cfg
+        return dict(ref_poses=np.array(reference_track_poses(
+            jax.random.fold_in(jax.random.PRNGKey(jcfg.seed), 17), jcfg)))
+    if task.startswith("MushrElevation"):
+        return dict(terrain=to_np(jenv.task.terrain))
+    return {}
+
+
+def port_env(task: str, num_envs: int, overrides: dict, build: dict):
+    """The port's env on the CPU with JAX's build-time draws handed over
+    (`build_draws`)."""
     from wheeledlab_torch.convert import heightfield_from_jax
     from wheeledlab_torch.tasks import resolve_task
     from wheeledlab_torch.utils.config import apply_overrides
-    from wheeledlab_tpu.tasks.drift.task import reference_track_poses
 
     entry = resolve_task(task)
     cfg = apply_overrides(entry["cfg"].replace(num_envs=num_envs),
                           dict(overrides))
     extra = {}
-    if task.startswith("MushrDrift"):
-        jcfg = jenv.task_cfg
-        extra["ref_poses"] = torch.from_numpy(np.array(
-            reference_track_poses(jax.random.fold_in(
-                jax.random.PRNGKey(jcfg.seed), 17), jcfg)))
-    elif task.startswith("MushrElevation"):
-        extra["terrain"] = heightfield_from_jax(to_np(jenv.task.terrain))
+    if "ref_poses" in build:
+        extra["ref_poses"] = torch.from_numpy(build["ref_poses"])
+    if "terrain" in build:
+        extra["terrain"] = heightfield_from_jax(build["terrain"])
     return entry["make"](cfg, device="cpu", **extra)
 
 
@@ -644,36 +799,142 @@ def jax_env_state(state) -> dict:
 
 
 def jax_snapshot(state, metrics) -> dict:
+    """The learner's state after a phase; the recurrent learner's also
+    holds its carries (`hidden`) and `reset_prev`."""
     adam = state.opt_state[1].inner_state[0]
-    return dict(params=to_np(state.params), mu=to_np(adam.mu),
+    snap = dict(params=to_np(state.params), mu=to_np(adam.mu),
                 nu=to_np(adam.nu), count=int(adam.count),
                 lr=float(state.opt_state[1].hyperparams["learning_rate"]),
                 metrics={k: np.asarray(v) for k, v in metrics.items()
                          if not k.startswith("traj/")},
                 env_state=to_np(state.env_state), obs=np.asarray(state.obs))
+    if hasattr(state, "hidden"):
+        snap.update(hidden=to_np(state.hidden),
+                    reset_prev=np.asarray(state.reset_prev))
+    return snap
 
 
 def port_snapshot(learner, state, metrics) -> dict:
-    named = dict(learner.model.named_parameters())
-    opt = learner.optimizer.state
-    moments = lambda key: {n: _np(opt[p][key]) for n, p in named.items()}
-    return dict(params={k: _np(v) for k, v in
-                        learner.model.state_dict().items()},
-                mu=moments("exp_avg"), nu=moments("exp_avg_sq"),
-                count=int(next(iter(opt.values()))["step"]),
-                lr=float(learner.lr),
+    """`jax_snapshot` of the port's learner and train state."""
+    snap = dict(port_learner(learner),
                 metrics={k: _np(v) for k, v in metrics.items()
                          if not k.startswith("traj/")},
                 env_state=port_env_state(state.env_state), obs=_np(state.obs))
+    if hasattr(state, "hidden"):
+        snap.update(hidden=flat_hidden(state.hidden),
+                    reset_prev=_np(state.reset_prev))
+    return snap
+
+
+def port_model_from_jax(tree, activation: str):
+    """The port's model (`ActorCritic` or `ActorCriticRecurrent`) holding a
+    flax-shaped tree: parameters, or an Adam moment of them."""
+    from wheeledlab_torch.convert import (
+        actor_critic_from_jax, actor_critic_recurrent_from_jax)
+
+    tree = to_np(tree)
+    convert = (actor_critic_recurrent_from_jax if "memory" in tree["params"]
+               else actor_critic_from_jax)
+    return convert(tree, activation=activation)
 
 
 def jax_as_port(tree, activation: str) -> dict:
     """A flax-shaped tree (parameters or an Adam moment) as numpy arrays
     under the port's state-dict names."""
-    from wheeledlab_torch.convert import actor_critic_from_jax
+    return {k: v.numpy() for k, v in port_model_from_jax(
+        tree, activation).state_dict().items()}
 
-    return {k: v.numpy() for k, v in actor_critic_from_jax(
-        to_np(tree), activation=activation).state_dict().items()}
+
+@dataclasses.dataclass
+class JaxRecord:
+    """JAX's side of a lockstep run: per phase (the init, then each
+    iteration) the events and the snapshot after it, the build-time draws
+    handed to the port (`build_draws`), and the `XLA_FLAGS` it ran
+    under."""
+
+    events: List[list]
+    snaps: List[dict]
+    build: dict
+    xla_flags: str = ""         # the recording process's `XLA_FLAGS`
+
+
+def record_jax(case: str, iterations: int = 2, ppo: dict = SMALL_PPO,
+               capture=("step", "traj", "gae", "minibatch"),
+               jax_route: str = "kernel", agent: str = "case") -> JaxRecord:
+    """Run JAX's `init_fn` at `PRNGKey(0)` and `iterations` of its
+    `train_iteration` (`make_learner`: `make_ppo`, or `make_ppo_recurrent`
+    for a recurrent agent), jitted, recording their draws and the values
+    between the modules that `capture` names (`instrument_jax`)."""
+    from wheeledlab_tpu.rl.ppo import make_learner
+
+    task, num_envs, config, overrides = CASES[case]
+    _, jcfg = agent_cfgs(config if agent == "case" else agent, ppo)
+    jenv = jax_env(task, num_envs, overrides, jax_route)
+    run = JaxRun()
+    events, snaps = [], []
+    with run:
+        init_fn, train_iteration, _ = make_learner(jenv, jcfg)
+        instrument_jax(run, jenv, train_iteration, capture)
+        state = jax.jit(init_fn)(jax.random.PRNGKey(0))
+        events.append(run.take())
+        snaps.append(jax_snapshot(state, {}))
+        step = jax.jit(train_iteration)
+        for it in range(iterations):
+            state, metrics = step(state)
+            events.append(run.take())
+            snaps.append(jax_snapshot(state, metrics))
+    return JaxRecord(events, snaps, build_draws(task, jenv),
+                     os.environ.get("XLA_FLAGS", ""))
+
+
+# `XLA_FLAGS` of a recording made in a process of its own: XLA then rounds
+# every bfloat16 intermediate where the program declares it (its default,
+# excess precision, keeps some in float32), as the port's recurrent cells
+# do. The flag is read when JAX's backend starts, so it cannot be set in a
+# process that has started JAX already.
+EXACT_PRECISION_FLAG = "--xla_allow_excess_precision=false"
+
+
+def exact_precision_env() -> dict:
+    """The environment of a child process that runs JAX on the CPU with
+    `EXACT_PRECISION_FLAG` appended to `XLA_FLAGS` (the others kept) and
+    the repo on its path; this process's own is left as it is."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["XLA_FLAGS"] = " ".join(
+        f for f in (env.get("XLA_FLAGS", ""), EXACT_PRECISION_FLAG) if f)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(TORCH_ROOT), env.get("PYTHONPATH"))
+        if p)
+    return env
+
+
+def record_in_subprocess(case: str, path: str, **kwargs):
+    """Start `record_jax(case, **kwargs)` in a process of its own, on the
+    CPU with `EXACT_PRECISION_FLAG` appended to `XLA_FLAGS`; it pickles its
+    `JaxRecord` to `path` (`_torch_lockstep_recorder.py`). Returns the
+    `subprocess.Popen`; `load_record` waits for it. This process's own
+    environment is left as it is."""
+    import json
+    import subprocess
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_torch_lockstep_recorder.py")
+    return subprocess.Popen(
+        [sys.executable, script, case, path, json.dumps(kwargs)],
+        env=exact_precision_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def load_record(proc, path: str, timeout: float = 600) -> JaxRecord:
+    """Wait for `record_in_subprocess`'s process and load its record."""
+    import pickle
+
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"the JAX recording failed ({proc.returncode})"
+                             f":\n{out[-4000:]}")
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 @dataclasses.dataclass
@@ -694,14 +955,34 @@ class Lockstep:
     jax_route: str = "kernel"
 
 
+def port_train_state(snap: dict, iteration: int = 0):
+    """The port's train state from a JAX snapshot: env state and obs, and
+    the recurrent learner's carries and `reset_prev`."""
+    from wheeledlab_torch.convert import (
+        env_state_from_jax, recurrent_hidden_from_jax)
+    from wheeledlab_torch.rl.ppo import TrainState
+    from wheeledlab_torch.rl.recurrent import RecurrentTrainState
+
+    state = dict(env_state=env_state_from_jax(snap["env_state"]),
+                 obs=torch.from_numpy(snap["obs"].copy()),
+                 iteration=iteration)
+    if "hidden" not in snap:
+        return TrainState(**state)
+    return RecurrentTrainState(
+        **state, hidden=recurrent_hidden_from_jax(snap["hidden"]),
+        reset_prev=torch.from_numpy(snap["reset_prev"].copy()))
+
+
 def run_lockstep(case: str, iterations: int = 2, ppo: dict = SMALL_PPO,
                  capture=("step", "traj", "gae", "minibatch"),
                  jax_route: str = "kernel", feed: str = "free",
-                 agent: str = "case", hand_kl: bool = True) -> Lockstep:
-    """Run JAX's `init_fn` at `PRNGKey(0)` and `iterations` of its
-    `train_iteration`, recording their draws and the values between the
-    modules that `capture` names (`instrument_jax`); then the port from
-    JAX's initial state (parameters, env state, obs; Adam fresh on both
+                 agent: str = "case", hand_kl: bool = True,
+                 record: JaxRecord = None, restart: bool = False,
+                 learner_feed: bool = False) -> Lockstep:
+    """Run JAX's side (`record_jax`, unless `record` is given: one made
+    with the same arguments, as `record_in_subprocess` makes it); then the
+    port from JAX's initial state (parameters, env state, obs; the
+    recurrent learner's carries and `reset_prev`; Adam fresh on both
     sides), its env's `reset` and each `train_iteration` fed the draws of
     JAX's.
 
@@ -711,49 +992,44 @@ def run_lockstep(case: str, iterations: int = 2, ppo: dict = SMALL_PPO,
     env's (`instrument_port`). The port's own outputs and post-step
     states are recorded either way. `agent`: "case", the case's run config's
     agent; None, `PPOCfg`'s defaults. `hand_kl`: hand the port JAX's KL
-    residues (`KL_RESIDUE`; needs "minibatch" in `capture`)."""
-    from wheeledlab_torch.convert import actor_critic_from_jax
-    from wheeledlab_torch.convert import env_state_from_jax
-    from wheeledlab_torch.rl.ppo import TrainState, make_learner
-    from wheeledlab_tpu.rl.ppo import make_ppo
+    residues (`KL_RESIDUE`; needs "minibatch" in `capture`). `restart`:
+    each iteration after the first starts from JAX's state after the one
+    before (parameters, Adam, LR, env state, obs, carries) in place of the
+    port's. `learner_feed` (the recurrent learner): each minibatch starts
+    from JAX's parameters, Adam state and LR before it."""
+    from wheeledlab_torch.rl.ppo import make_learner
 
+    if record is None:
+        record = record_jax(case, iterations, ppo, capture, jax_route, agent)
+    jax_events, jax_snaps = record.events, record.snaps
     task, num_envs, config, overrides = CASES[case]
-    agent, jcfg = agent_cfgs(config if agent == "case" else agent, ppo)
-    jenv = jax_env(task, num_envs, overrides, jax_route)
-    tenv = port_env(task, num_envs, overrides, jenv)
-    run = JaxRun()
-    jax_events, jax_snaps = [], []
-    with run:
-        init_fn, train_iteration, _ = make_ppo(jenv, jcfg)
-        instrument_jax(run, jenv, train_iteration, capture)
-        state = jax.jit(init_fn)(jax.random.PRNGKey(0))
-        jax_events.append(run.take())
-        jax_snaps.append(jax_snapshot(state, {}))
-        step = jax.jit(train_iteration)
-        for it in range(iterations):
-            state, metrics = step(state)
-            jax_events.append(run.take())
-            jax_snaps.append(jax_snapshot(state, metrics))
-
+    agent, _ = agent_cfgs(config if agent == "case" else agent, ppo)
+    tenv = port_env(task, num_envs, overrides, record.build)
     learner = make_learner(tenv, agent)
-    learner.model.load_state_dict(actor_critic_from_jax(
-        jax_snaps[0]["params"], activation=agent.activation).state_dict())
+    learner.model.load_state_dict(port_model_from_jax(
+        jax_snaps[0]["params"], agent.activation).state_dict())
     port_events = [[]]
     feeds = None if feed == "free" else deque()
     kl_feed = deque() if hand_kl else None
+    states = deque() if learner_feed else None
     residues = []
-    instrument_port(learner, port_events, feeds, capture, kl_feed, residues)
+    instrument_port(learner, port_events, feeds, capture, kl_feed, residues,
+                    states)
     replay = PortReplay()
     replay.feed(jax_events[0])
     with replay:
         reset = tenv.reset()
     assert not replay.pending(), replay.pending()
-    tstate = TrainState(
-        env_state=env_state_from_jax(jax_snaps[0]["env_state"]),
-        obs=torch.from_numpy(jax_snaps[0]["obs"].copy()), iteration=0)
+    tstate = port_train_state(jax_snaps[0])
     port_snaps = [None]
     for it in range(iterations):
         port_events.append([])
+        if restart and it > 0:
+            load_jax_learner(learner, jax_snaps[it])
+            tstate = port_train_state(jax_snaps[it], it)
+        if states is not None:
+            steps = [v for tag, v in jax_events[it + 1] if tag == "minibatch"]
+            states.extend([jax_snaps[it]] + steps[:-1])
         replay.feed(jax_events[it + 1])
         if kl_feed is not None:
             kl_feed.extend(v["metrics"][4] for tag, v in jax_events[it + 1]
@@ -796,6 +1072,28 @@ class Tols:
     parting: float = 0.0
 
 
+@dataclasses.dataclass
+class RecurrentTols:
+    """The recurrent learner's bounds beyond `Tols` (see `compare`). After
+    each Adam step: parameters, at most `far` of the entries more than
+    ADAM_NEAR apart (None: counted and printed, not held) and none more
+    than 2 lr per Adam step + ADAM_NEAR; the first moment, at most `far`
+    of the entries more than ADAM_NEAR apart and none more than `mu_max`;
+    the second, none more than NU_MAX. `per_step`: each step started from
+    JAX's learner state (`run_lockstep(learner_feed=True)`), so its bound
+    counts its own LR; otherwise the LRs of the iteration's steps so far
+    add up."""
+
+    far: float = 0.005
+    mu_max: float = 1e-4
+    per_step: bool = True
+
+
+# tests/test_torch_recurrent.py::params_close's "apart"; a bound on Adam's
+# second moment, whose entries are gradients squared (1e-8 here)
+ADAM_NEAR, NU_MAX = 1e-5, 1e-6
+
+
 # env-step values compared exactly: flags, counters, integral floats
 EXACT = ("done", "time_out", "episode_length", "step_count", "common_step",
          "command_timer", "push_timers", "ep_len", "reward_weights")
@@ -811,6 +1109,7 @@ class Report:
         default_factory=lambda: defaultdict(lambda: [0.0, 0.0]))
     failures: List[str] = dataclasses.field(default_factory=list)
     partings: List[tuple] = dataclasses.field(default_factory=list)
+    notes: List[str] = dataclasses.field(default_factory=list)
 
     def add(self, name, got, want, tol=None, env_axis=None):
         """Compare; return the envs (along `env_axis`) out of tolerance, or
@@ -846,6 +1145,7 @@ class Report:
     def text(self) -> str:
         lines = [f"  {k}: max |diff| {v[0]:.3g}, {v[1]:.3g} of the "
                  "tolerance" for k, v in sorted(self.rows.items())]
+        lines += [f"  {n}" for n in self.notes]
         lines += [f"  parted: phase {p}, step {t}, env {e}: {q}"
                   for p, t, e, q in self.partings]
         return "\n".join(lines)
@@ -857,7 +1157,7 @@ def _scale_rel(got: dict, want: dict) -> Dict[str, float]:
 
 
 def compare(ls: Lockstep, phase: int, tols: Tols, learner: bool = True,
-            until: int = None) -> Report:
+            until: int = None, rnn: RecurrentTols = None) -> Report:
     """Hold phase `phase` (an iteration, 1-based) of a lockstep run to JAX's.
 
     Each env step: the outputs (obs, reward, done, time_out, every info)
@@ -870,11 +1170,27 @@ def compare(ls: Lockstep, phase: int, tols: Tols, learner: bool = True,
     and learning rate, and last every parameter, Adam's moments and step
     count, the learning rate and every metric of the iteration. `until`:
     the env steps after it are left out; `learner=False` stops after the
-    env steps."""
+    env steps.
+
+    The recurrent learner's run (`rnn`, its further bounds) also holds
+    each policy step's carries and outputs (`tols.policy`; an env whose
+    carries leave it parts at that step, as above) and the `reset_prev`
+    it took (exactly), and the window-start hidden; its transitions and
+    GAE on the envs that did not part. Each minibatch: its env columns
+    exactly (named by its actions, on each side against its own rollout),
+    its forward where its parameters started equal (each minibatch with
+    `rnn.per_step`, else the first): means and values over the window
+    within `tols.policy`, a (step, env) that leaves it parting, named by
+    minibatch and step; its loss terms within `tols.loss` (the default
+    `Tols.loss` where its forward parted or it holds an env that parted in
+    the rollout), and the parameters and Adam moments after its step by
+    `RecurrentTols`' rule."""
     report = Report()
     J = split_events(ls.jax_events[phase])
     P = split_events(ls.port_events[phase])
-    for tag in ("step", "traj", "gae", "minibatch"):
+    tags = ("step", "traj", "gae", "minibatch") + (
+        ("carry", "h0") if rnn else ())
+    for tag in tags:
         if len(J[tag]) != len(P[tag]):
             report.failures.append(f"{tag}: {len(P[tag])} in the port, "
                                    f"{len(J[tag])} in JAX")
@@ -910,29 +1226,50 @@ def compare(ls: Lockstep, phase: int, tols: Tols, learner: bool = True,
                 parted[int(e)].append(name)
         report.partings.extend((phase, t, e, q)
                                for e, q in sorted(parted.items()))
+    if rnn:
+        _compare_carries(report, phase, J, P, tols)
     if J["step"]:
         env_steps = len(J["step"]) * J["step"][0]["reward"].shape[0]
-        share = sum(p[0] == phase for p in report.partings) / env_steps
+        share = len({(t, e) for p, t, e, _ in report.partings
+                     if p == phase and isinstance(t, int)}) / env_steps
         if share > tols.parting:
             report.failures.append(
                 f"{share:.4f} of the env steps parted (allowed "
                 f"{tols.parting})")
     if not learner:
         return report
+    # the recurrent run's transitions and GAE on the envs that did not
+    # part (an env's carries, once parted, stay so to the window's end)
+    parted = sorted({e for p, t, e, _ in report.partings
+                     if p == phase and isinstance(t, int)})
+    keep = lambda x: np.delete(x, parted, axis=1) if rnn else x
     for jt, pt in zip(J["traj"], P["traj"]):
         for k in sorted(jt):
-            report.add(f"traj/{k}", pt[k], jt[k],
-                       None if k == "done" else tols.policy)
+            report.add(f"traj/{k}", keep(pt[k]), keep(jt[k]),
+                       None if k in ("done", "reset") else tols.policy)
     for jg, pg in zip(J["gae"], P["gae"]):
         for k in sorted(jg):
-            report.add(f"gae/{k}", pg[k], jg[k], tols.policy)
+            report.add(f"gae/{k}", keep(pg[k]), keep(jg[k]), tols.policy)
+    loss_tol = tols.loss
+    lrs = []
     for i, (jm, pm) in enumerate(zip(J["minibatch"], P["minibatch"])):
-        report.add("minibatch/losses", pm["metrics"], jm["metrics"],
-                   tols.loss)
+        tol = tols.loss
+        if rnn:
+            lrs.append(float(jm["lr"]))
+            # the forward is held where the parameters start equal
+            cols = _compare_minibatch(report, phase, i, jm, pm, J, P, tols,
+                                      hold=rnn.per_step or i == 0)
+            if cols is None or set(cols) & set(parted):
+                tol = loss_tol = Tols.loss
+            _compare_adam(report, f"minibatch {i}", pm, jm, ls.activation,
+                          rnn, lrs)
+        report.add("minibatch/losses", pm["metrics"], jm["metrics"], tol)
         report.add("minibatch/lr", pm["lr"], jm["lr"], (tols.lr_rtol, 0.0))
     js, ps = ls.jax_snaps[phase], ls.port_snaps[phase]
-    for part, tol in (("params", tols.params), ("mu", tols.mu),
-                      ("nu", tols.nu)):
+    # the recurrent learner's end state is its last minibatch's, held
+    # above
+    for part, tol in () if rnn else (("params", tols.params),
+                                     ("mu", tols.mu), ("nu", tols.nu)):
         rel = _scale_rel(ps[part], jax_as_port(js[part], ls.activation))
         worst = max(rel, key=rel.get)
         report.rows[f"{part} (of the tensor's scale)"] = [rel[worst],
@@ -947,9 +1284,90 @@ def compare(ls: Lockstep, phase: int, tols: Tols, learner: bool = True,
                                f"{sorted(js['metrics'])}")
     for k in sorted(set(ps["metrics"]) & set(js["metrics"])):
         tol = None if k == "episode/num_dones" else (
-            (tols.lr_rtol, 0.0) if k == "lr" else tols.loss)
+            (tols.lr_rtol, 0.0) if k == "lr" else loss_tol)
         report.add(f"metric/{k}", ps["metrics"][k], js["metrics"][k], tol)
     return report
+
+
+def _compare_carries(report: Report, phase: int, J, P, tols: Tols):
+    """The recurrent rollout's policy steps (`compare`)."""
+    for t, (jc, pc) in enumerate(zip(J["carry"], P["carry"])):
+        parted = defaultdict(list)
+        jh = flat_hidden(jc["hidden"])
+        values = [(f"carry/{k}", pc["hidden"][k], jh[k]) for k in sorted(jh)]
+        values += [(f"policy/{k}", pc[k], jc[k]) for k in ("mean", "value")]
+        for name, got, want in values:
+            for e in report.add(name, got, want, tols.policy, 0):
+                parted[int(e)].append(name)
+        report.add("policy/std", pc["std"], jc["std"], tols.policy)
+        report.add("carry/reset_prev", pc["reset_prev"], jc["reset_prev"])
+        report.partings.extend((phase, t, e, q)
+                               for e, q in sorted(parted.items()))
+    for jh, ph in zip(J["h0"], P["h0"]):
+        jh = flat_hidden(jh)
+        for k in sorted(jh):
+            report.add(f"h0/{k}", ph[k], jh[k], tols.policy)
+
+
+def minibatch_cols(mb_action: np.ndarray, traj_action: np.ndarray
+                   ) -> np.ndarray:
+    """A minibatch's env columns: for each of its columns the env whose
+    actions over the window ([T, mb, A] against the rollout's [T, B, A])
+    it holds; -1 where none or more than one env does."""
+    same = (mb_action[:, :, None] == traj_action[:, None]).all(axis=(0, 3))
+    return np.where(same.sum(1) == 1, same.argmax(1), -1)
+
+
+def _compare_minibatch(report: Report, phase: int, i: int, jm, pm, J, P,
+                       tols: Tols, hold: bool):
+    """A recurrent minibatch's columns and, if `hold`, its forward
+    (`compare`). Returns its columns, or None where its forward parted."""
+    cols = minibatch_cols(jm["action"], J["traj"][0]["action"])
+    report.add("minibatch/cols", minibatch_cols(
+        pm["action"], P["traj"][0]["action"]), cols)
+    if (cols < 0).any():
+        report.failures.append(f"minibatch {i}: columns not found")
+    parted = defaultdict(list)
+    for k in ("mean", "value") if hold else ():
+        bad = ~(np.abs(pm[k].astype(np.float64) - jm[k])
+                <= tols.policy[1] + tols.policy[0] * np.abs(jm[k]))
+        report.add(f"minibatch/{k}", pm[k], jm[k], tols.policy, 1)
+        for t, j in np.argwhere(bad.reshape(*bad.shape[:2], -1).any(-1)):
+            parted[(int(t), int(cols[j]))].append(k)
+    report.partings.extend((phase, f"{t} of minibatch {i}'s forward", e, q)
+                           for (t, e), q in sorted(parted.items()))
+    return None if parted else cols
+
+
+def _compare_adam(report: Report, where: str, got: dict, want: dict,
+                  activation: str, rnn: RecurrentTols, lrs: List[float]):
+    """Parameters and Adam moments after an Adam step by `RecurrentTols`'
+    rule; `lrs`, the LRs of the iteration's steps so far."""
+    step = 2 * (lrs[-1] if rnn.per_step else sum(lrs)) + ADAM_NEAR
+    for part, far, limit in (("params", rnn.far, step),
+                             ("mu", rnn.far, rnn.mu_max),
+                             ("nu", None, NU_MAX)):
+        ref = jax_as_port(want[part], activation)
+        d = {k: np.abs(got[part][k].astype(np.float64) - ref[k])
+             for k in ref}
+        n = sum(x.size for x in d.values())
+        n_far = sum(int((x > ADAM_NEAR).sum()) for x in d.values())
+        worst = max(d, key=lambda k: d[k].max())
+        report.notes.append(
+            f"{part} after {where}: {n_far} of {n} entries more than "
+            f"{ADAM_NEAR} apart, max |diff| {d[worst].max():.3g} "
+            f"({worst}; limit {limit:.3g})")
+        row = report.rows[f"adam/{part}"]
+        row[0] = max(row[0], float(d[worst].max()))
+        row[1] = max(row[1], float(d[worst].max()) / limit)
+        if d[worst].max() > limit:
+            report.failures.append(f"{part} after {where}: {worst} "
+                                   f"{d[worst].max():.3g} apart (limit "
+                                   f"{limit:.3g})")
+        if far is not None and n_far > far * n:
+            report.failures.append(f"{part} after {where}: {n_far} of {n} "
+                                   f"entries more than {ADAM_NEAR} apart "
+                                   f"(allowed {far})")
 
 
 def compare_reset(ls: Lockstep, tols: Tols) -> Report:

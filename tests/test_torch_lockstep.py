@@ -9,10 +9,12 @@ table). The port starts from JAX's initial state (parameters through
 `convert.actor_critic_from_jax`, the env state through
 `convert.env_state_from_jax`, Adam fresh on both sides) and runs its own
 `PPO.train_iteration` twice, K1's plain version carrying the env; nothing
-of JAX's is handed to it after the start. Two cases: the task as
-registered (no episode ends in 16 steps), and 0.1 s episodes with wide
-spawns (time-outs with their bootstrap, out-of-bounds terminations,
-resets, the curriculum; 175 episodes end in the first iteration).
+of JAX's is handed to it after the start. Three cases: the task as
+registered (no episode ends in 16 steps), 0.1 s episodes with wide spawns
+(time-outs with their bootstrap, out-of-bounds terminations, resets, the
+curriculum; 175 episodes end in the first iteration), and the F1Tenth
+vehicle (`F1TenthDriftRL-v0`, F1TENTH_DRIFT_CONFIG's agent, 128 envs; its
+own wheel, mass and tire rows through the same K1).
 
 Held at every step: the env's outputs (obs, reward, done, time_out, every
 info) and state, then the transitions (obs, action, log-prob, value,
@@ -24,8 +26,8 @@ module tests' own): flags and counters exactly; floats within 1e-5 + 1e-5
 largest on the wheel rates); parameters and Adam's first moment within
 1e-5 of each tensor's largest entry, the second within 1e-4
 (tests/test_torch_ppo_elevation.py's bounds; measured 8.8e-6, 4.7e-6,
-1.5e-5). No env may part. Each test prints every quantity's largest
-difference (`pytest -s`).
+1.5e-5; F1Tenth 1.3e-6, 1.9e-6, 1.35e-5). No env may part. Each test
+prints every quantity's largest difference (`pytest -s`).
 """
 
 import os
@@ -48,7 +50,7 @@ DRIFT_SITES = {"drift_dr_buckets", "drift_dr_assign", "drift_dr_damping",
 _RUNS = {}
 
 
-@pytest.fixture(scope="module", params=["drift", "drift_resets"])
+@pytest.fixture(scope="module", params=["drift", "drift_resets", "f1tenth"])
 def run(request):
     if request.param not in _RUNS:
         _RUNS[request.param] = L.run_lockstep(request.param)
@@ -63,7 +65,8 @@ def test_every_draw_replayed_at_its_site(run):
     K1's uniform and normal rows (16 each), and one epoch permutation per
     iteration. A KL residue handed over (`_torch_lockstep.KL_RESIDUE`)
     is one of a first minibatch, where the port's estimate is 0 (in
-    "drift_resets", iteration 2: JAX's 2.98e-8)."""
+    "drift_resets", iteration 2: JAX's 2.98e-8; in "f1tenth", iteration
+    2: 5.96e-8)."""
     assert set(run.taken) == DRIFT_SITES
     assert run.taken["action_noise"] == run.taken["drift_step_uniforms"] \
         == run.taken["drift_step_normals"] == 16

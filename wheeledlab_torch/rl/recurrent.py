@@ -57,21 +57,52 @@ class LSTMCell(nn.Module):
                 self.wh[:, gate] = w
 
 
+class _Gates(torch.autograd.Function):
+    """The cell's gates from its pre-activations z (bfloat16, (..., 4H)):
+    (i, f, g, o) = sigmoid, sigmoid, tanh, sigmoid of z's four chunks, as
+    the forward computed them before (one sigmoid over all four chunks,
+    g's computed and not used: the same values elementwise, in a quarter
+    of the launches). The backward is JAX's: the logistic's rule, `d * (y
+    * (1 - y))`, and the transpose of tanh's, `e = d * (1 - y)`, then `e +
+    e * y`, each operation rounding to bfloat16 as XLA's does. Autograd's
+    of 1 / (1 + exp(-z)) and `torch.tanh`'s `d * (1 - y * y)`, rounded
+    once, move the gates' gradients by a bfloat16 ulp in a third of the
+    entries. One Function for the four gates: its Python call is the
+    host's cost of the rule."""
+
+    @staticmethod
+    def forward(ctx, z):
+        s = sigmoid(z)
+        g = torch.tanh(z.chunk(4, dim=-1)[2])
+        ctx.save_for_backward(s, g)
+        i, f, _, o = s.chunk(4, dim=-1)
+        return i, f, g, o
+
+    @staticmethod
+    def backward(ctx, di, df, dg, do):
+        s, g = ctx.saved_tensors
+        dz = torch.cat([di, df, dg, do], dim=-1) * (s * (1.0 - s))
+        e = dg * (1.0 - g)
+        dz.chunk(4, dim=-1)[2].copy_(e + e * g)
+        return dz
+
+
 def lstm_step(carry: Tuple[torch.Tensor, torch.Tensor], dense_i: torch.Tensor,
               wh: torch.Tensor, bh: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One `LSTMCell` step from `carry` = (c, h), float32, (..., B, H).
     `dense_i` is the input's projection `bf16(x) @ bf16(wi)` (bfloat16,
-    (..., B, 4H)); `wh` and `bh` are the cell's, cast to bfloat16 (once a
-    sequence, by the caller). Leading axes batch cells side by side.
-    Rounding points as flax's: the projections and their sum in bfloat16,
-    the gates in bfloat16, `f * c` and the new carry in float32."""
+    (..., B, 4H)); `wh` and `bh` are the cell's, float32: cast here, as
+    flax casts them inside each step, so that the steps' gradients of a
+    weight add up in float32 (the uses of one bfloat16 copy would add up
+    in bfloat16). Leading axes batch cells side by side. Rounding points
+    as flax's: the projections and their sum in bfloat16, the gates in
+    bfloat16 (with JAX's backward, `_Gates`), `f * c` and the new carry
+    in float32."""
     c, h = carry
-    z = h.to(torch.bfloat16) @ wh + bh + dense_i
-    # one sigmoid over all four gates (g's is computed and not used): the
-    # same values elementwise, in a quarter of the launches
-    i, f, _, o = sigmoid(z).chunk(4, dim=-1)
-    g = torch.tanh(z.chunk(4, dim=-1)[2])
+    bf = torch.bfloat16
+    z = h.to(bf) @ wh.to(bf) + bh.to(bf) + dense_i
+    i, f, g, o = _Gates.apply(z)
     new_c = f * c + i * g
     new_h = o * torch.tanh(new_c)
     return new_c, new_h
@@ -127,8 +158,8 @@ class ActorCriticRecurrent(nn.Module):
         other."""
         bf = torch.bfloat16
         pairs = list(zip(self.lstm_a, self.lstm_c))
-        # weights cast once a sequence: [2, in, 4H], [2, H, 4H], [2, 1, 4H]
-        weights = [tuple(torch.stack([getattr(a, n), getattr(c, n)]).to(bf)
+        # weights stacked: [2, in, 4H], [2, H, 4H], [2, 1, 4H]
+        weights = [tuple(torch.stack([getattr(a, n), getattr(c, n)])
                          for n in ("wi", "wh", "bh")) for a, c in pairs]
         weights = [(wi, wh, bh[:, None]) for wi, wh, bh in weights]
         carry = [tuple(torch.stack([hidden["actor"][layer][k],
@@ -136,14 +167,18 @@ class ActorCriticRecurrent(nn.Module):
                        for k in range(2)) for layer in range(len(pairs))]
         # the first layer's input projection for the whole sequence, [T,
         # 2, B, 4H]: row for row the product flax's cell forms a step at a
-        # time (unbound, so that the backward stacks its T gradients once)
-        first_i = (obs_seq.to(bf)[:, None] @ weights[0][0][None]).unbind(0)
+        # time (unbound, so that the backward stacks its T gradients once;
+        # the weight cast a step, as in `lstm_step`, so that their sum is in
+        # float32)
+        wi0 = weights[0][0]
+        first_i = (obs_seq.to(bf)[:, None]
+                   @ wi0.expand(len(obs_seq), *wi0.shape).to(bf)).unbind(0)
         seq = []
         for t, keep in enumerate((1.0 - reset_seq)[..., None].unbind(0)):
             x = None
             for layer, (wi, wh, bh) in enumerate(weights):
                 c, h = carry[layer]
-                dense_i = first_i[t] if layer == 0 else x.to(bf) @ wi
+                dense_i = first_i[t] if layer == 0 else x.to(bf) @ wi.to(bf)
                 carry[layer] = lstm_step((c * keep, h * keep), dense_i, wh,
                                          bh)
                 x = carry[layer][1]
