@@ -53,8 +53,8 @@ How it works:
 The site-to-site table. A site is the package frames of the draw's call,
 innermost first ("a <- b": `a` is called from `b`), as `package_stack`
 writes them: `path:line` in the JAX package, `path:function+offset` in the
-port (the line's offset from the function's first line; `fused_step+23`
-is `tasks/drift/fused.py:604` today); paths are relative to
+port (the line's offset from the function's first line; `fused_step+26`
+is `tasks/drift/fused.py:608` today); paths are relative to
 `wheeledlab_tpu/` and `wheeledlab_torch/`. `SITES` is parsed from this
 table, so the table is what the replay uses; "unit" replays JAX's unit
 draw, "output" JAX's value. Each case's test names the rows it must take
@@ -62,12 +62,12 @@ and how many draws each.
 
 | site | JAX draw | port draw | replay |
 |---|---|---|---|
-| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+8 <- rl/ppo.py:PPO.rollout+11` | output |
-| epoch_perm | `rl/ppo.py:358` | `rl/ppo.py:PPO.update_epochs+14` | output |
-| rnn_action_noise | `rl/recurrent.py:242` | `rl/ppo.py:PPO.act_and_step+8 <- rl/recurrent.py:RecurrentPPO.rollout+14` | output |
-| rnn_env_perm | `rl/recurrent.py:328` | `rl/recurrent.py:RecurrentPPO.update_epochs+12` | output |
-| drift_step_uniforms | `tasks/drift/fused.py:618` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+23` | unit |
-| drift_step_normals | `tasks/drift/fused.py:619` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+25` | output |
+| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+10 <- rl/ppo.py:PPO.rollout+13` | output |
+| epoch_perm | `rl/ppo.py:358` | `rl/ppo.py:PPO.update_epochs+16` | output |
+| rnn_action_noise | `rl/recurrent.py:242` | `rl/ppo.py:PPO.act_and_step+10 <- rl/recurrent.py:RecurrentPPO.rollout+16` | output |
+| rnn_env_perm | `rl/recurrent.py:328` | `rl/recurrent.py:RecurrentPPO.update_epochs+14` | output |
+| drift_step_uniforms | `tasks/drift/fused.py:618` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+26` | unit |
+| drift_step_normals | `tasks/drift/fused.py:619` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+28` | output |
 | drift_dr_buckets | `tasks/drift/task.py:283` | `tasks/drift/task.py:_uniform+1 <- tasks/drift/task.py:make_drift_task.init_params+6` | unit |
 | drift_dr_assign | `tasks/drift/task.py:286` | `tasks/drift/task.py:make_drift_task.init_params+8` | output |
 | drift_dr_damping | `tasks/drift/task.py:288` | `tasks/drift/task.py:_uniform+1 <- tasks/drift/task.py:make_drift_task.init_params+11` | unit |
@@ -117,7 +117,7 @@ from `PRNGKey(cfg.seed)` when it builds a task, where the port draws them
 from `torch.Generator`s (`tasks/drift/task.py:255`,
 `tasks/elevation/terrain_gen.py:31`); the tests hand JAX's over
 (`ref_poses=`, `terrain=`). JAX's in-kernel RNG seed (`tasks/drift/
-fused.py:586`) and the port's (`tasks/drift/fused.py:589`) are off here,
+fused.py:586`) and the port's (`tasks/drift/fused.py:591`) are off here,
 as JAX ignores `WHEELEDLAB_KERNEL_RNG` off a TPU.
 """
 

@@ -36,6 +36,7 @@ from ..sim.types import VehicleParams, VehicleState
 from ..utils import math as wmath
 from ..utils.config import configclass
 from ..utils.device import resolve_device
+from ..utils.profiling import span, spanned
 
 
 @configclass
@@ -274,6 +275,7 @@ class WheeledEnv:
 
     # ------------------------------------------------------------------- step
 
+    @spanned("env.step")
     def step(self, state: EnvState,
              action: torch.Tensor) -> Tuple[EnvState, StepOutput]:
         if self.task.fused_step is not None and not self.per_vehicle:
@@ -291,87 +293,95 @@ class WheeledEnv:
 
         # 2. physics decimation: kernel K2 (flat) or K3 (heightfield), or
         # the per-vehicle physics with its contact data
-        if self.per_vehicle:
-            vehicle, aux = dynamics.step(
-                prev_vehicle, state.params, task.terrain, steer_t, wheel_t,
-                cfg.sim_dt, cfg.decimation, self._contact_atlas)
-        else:
-            mem = self._physics(state.vehicle_mem, state.packed_params,
-                                steer_t.T.contiguous(),
-                                wheel_t.T.contiguous())
-            vehicle, aux = unpack_state(mem), None
+        with span("env.physics"):
+            if self.per_vehicle:
+                vehicle, aux = dynamics.step(
+                    prev_vehicle, state.params, task.terrain, steer_t, wheel_t,
+                    cfg.sim_dt, cfg.decimation, self._contact_atlas)
+            else:
+                mem = self._physics(state.vehicle_mem, state.packed_params,
+                                    steer_t.T.contiguous(),
+                                    wheel_t.T.contiguous())
+                vehicle, aux = unpack_state(mem), None
 
         # 3. interval events: velocity pushes
-        vehicle, push_timers = self._apply_pushes(vehicle, state.push_timers)
+        with span("env.events"):
+            vehicle, push_timers = self._apply_pushes(vehicle,
+                                                      state.push_timers)
 
-        step_count = state.step_count + 1
-        common_step = state.common_step + 1
+            step_count = state.step_count + 1
+            common_step = state.common_step + 1
 
-        # 4. commands: timed resample
-        command, command_timer = self._update_command(state.command,
-                                                      state.command_timer)
+            # 4. commands: timed resample
+            command, command_timer = self._update_command(state.command,
+                                                          state.command_timer)
 
         # reward/termination ctx sees the action applied THIS step as
         # last_action (IsaacLab action_manager semantics)
-        ctx = self._make_ctx(dataclasses.replace(
-            state, command=command, step_count=step_count,
-            common_step=common_step, last_action=action),
-            prev_vehicle, vehicle, aux)
+        with span("env.terms"):
+            ctx = self._make_ctx(dataclasses.replace(
+                state, command=command, step_count=step_count,
+                common_step=common_step, last_action=action),
+                prev_vehicle, vehicle, aux)
 
-        # 5. terminations (before reset; parity with termination_manager)
-        time_out = step_count >= self.max_episode_length
-        term_flags = {name: fn(ctx)
-                      for name, fn in task.termination_fns.items()}
-        terminated = torch.zeros((n,), dtype=torch.bool, device=self.device)
-        for v in term_flags.values():
-            terminated = terminated | v
-        done = terminated | time_out
-        ctx = ctx._replace(terminated=terminated, time_out=time_out,
-                           term_flags=term_flags)
+            # 5. terminations (before reset; parity with termination_manager)
+            time_out = step_count >= self.max_episode_length
+            term_flags = {name: fn(ctx)
+                          for name, fn in task.termination_fns.items()}
+            terminated = torch.zeros((n,), dtype=torch.bool,
+                                     device=self.device)
+            for v in term_flags.values():
+                terminated = terminated | v
+            done = terminated | time_out
+            ctx = ctx._replace(terminated=terminated, time_out=time_out,
+                               term_flags=term_flags)
 
-        # 6. rewards (pre-reset state, weights * step_dt)
-        reward = torch.zeros((n,), device=self.device)
-        per_term = {}
-        for i, t in enumerate(task.reward_terms):
-            r = state.reward_weights[i] * t.fn(ctx) * cfg.step_dt
-            per_term[f"rew/{t.name}"] = r
-            reward = reward + r
+            # 6. rewards (pre-reset state, weights * step_dt)
+            reward = torch.zeros((n,), device=self.device)
+            per_term = {}
+            for i, t in enumerate(task.reward_terms):
+                r = state.reward_weights[i] * t.fn(ctx) * cfg.step_dt
+                per_term[f"rew/{t.name}"] = r
+                reward = reward + r
 
-        # episode stats (before reset zeroes them)
-        ep_return = state.ep_return + reward
-        ep_len = state.ep_len + 1
+            # episode stats (before reset zeroes them)
+            ep_return = state.ep_return + reward
+            ep_len = state.ep_len + 1
 
         # 7. auto-reset: masked blend of fresh spawns into done envs
-        spawn = task.sample_spawn(g, n, self.device)
-        d1 = done[:, None]
-        vehicle = VehicleState(**{
-            f.name: torch.where(d1, getattr(spawn, f.name),
-                                getattr(vehicle, f.name))
-            for f in dataclasses.fields(VehicleState)})
-        step_count = torch.where(done, 0, step_count)
-        command = torch.where(d1, self._sample_command(n), command)
-        command_timer = torch.where(done, self._command_steps(),
-                                    command_timer)
-        last_action = torch.where(d1, 0.0, action)
+        with span("env.reset"):
+            spawn = task.sample_spawn(g, n, self.device)
+            d1 = done[:, None]
+            vehicle = VehicleState(**{
+                f.name: torch.where(d1, getattr(spawn, f.name),
+                                    getattr(vehicle, f.name))
+                for f in dataclasses.fields(VehicleState)})
+            step_count = torch.where(done, 0, step_count)
+            command = torch.where(d1, self._sample_command(n), command)
+            command_timer = torch.where(done, self._command_steps(),
+                                        command_timer)
+            last_action = torch.where(d1, 0.0, action)
 
-        # 8. curriculum: closed form of the host step counter
-        reward_weights = self._curriculum_weights(state.reward_weights,
-                                                  common_step)
+            # 8. curriculum: closed form of the host step counter
+            reward_weights = self._curriculum_weights(state.reward_weights,
+                                                      common_step)
 
-        new_state = EnvState(
-            vehicle_mem=vehicle if self.per_vehicle else pack_state(vehicle),
-            packed_params=state.packed_params, params=state.params,
-            step_count=step_count, common_step=common_step,
-            reward_weights=reward_weights, last_action=last_action,
-            command=command, command_timer=command_timer,
-            push_timers=push_timers,
-            ep_return=torch.where(done, 0.0, ep_return),
-            ep_len=torch.where(done, 0, ep_len),
-        )
+            new_state = EnvState(
+                vehicle_mem=(vehicle if self.per_vehicle
+                             else pack_state(vehicle)),
+                packed_params=state.packed_params, params=state.params,
+                step_count=step_count, common_step=common_step,
+                reward_weights=reward_weights, last_action=last_action,
+                command=command, command_timer=command_timer,
+                push_timers=push_timers,
+                ep_return=torch.where(done, 0.0, ep_return),
+                ep_len=torch.where(done, 0, ep_len),
+            )
 
         # 9. observations (post-reset; parity with observation_manager order)
-        obs = task.observe(self._make_ctx(new_state, prev_vehicle, vehicle,
-                                          aux), g)
+        with span("env.observe"):
+            obs = task.observe(self._make_ctx(new_state, prev_vehicle, vehicle,
+                                              aux), g)
 
         info = {
             "episode_return": ep_return,      # valid where done

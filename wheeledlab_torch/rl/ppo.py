@@ -29,6 +29,7 @@ from ..envs.env import EnvState, WheeledEnv
 from ..parallel import distributed, mesh
 from ..parallel.mesh import World
 from ..utils.config import configclass
+from ..utils.profiling import span, spanned
 from .networks import (
     DTYPES, ActorCritic, fused_actor_critic_apply, gaussian_entropy,
     gaussian_kl, gaussian_log_prob,
@@ -276,22 +277,25 @@ class PPO:
         `reward += gamma * V * time_out`, rsl_rl process_env_step); fold
         the step's info into `acc` (None before the first step) and, when
         `captures` is a list, append the step's `traj_captures`. Returns
-        (env_state, step output, acc)."""
-        action = mean + std * torch.randn(
-            mean.shape, generator=self.generator, device=self.env.device)
-        log_prob = gaussian_log_prob(mean, std, action)
+        (env_state, step output, acc). The span `ppo.record` covers all
+        but the env step: two calls a step."""
+        with span("ppo.record"):
+            action = mean + std * torch.randn(
+                mean.shape, generator=self.generator, device=self.env.device)
+            log_prob = gaussian_log_prob(mean, std, action)
         env_state, out = self.env.step(env_state, action)
-        reward = out.reward + self.cfg.gamma * value * out.time_out
-        for k, v in (("obs", obs), ("action", action),
-                     ("log_prob", log_prob), ("value", value),
-                     ("reward", reward), ("done", out.done),
-                     ("mean", mean), ("std", std)):
-            traj[k][t] = v
-        if acc is None:
-            acc = init_info_acc(out.info)
-        acc = accumulate_info(acc, out.info, out.done)
-        if captures is not None:
-            captures.append(traj_captures(env_state))
+        with span("ppo.record"):
+            reward = out.reward + self.cfg.gamma * value * out.time_out
+            for k, v in (("obs", obs), ("action", action),
+                         ("log_prob", log_prob), ("value", value),
+                         ("reward", reward), ("done", out.done),
+                         ("mean", mean), ("std", std)):
+                traj[k][t] = v
+            if acc is None:
+                acc = init_info_acc(out.info)
+            acc = accumulate_info(acc, out.info, out.done)
+            if captures is not None:
+                captures.append(traj_captures(env_state))
         return env_state, out, acc
 
     @staticmethod
@@ -300,6 +304,7 @@ class PPO:
         for k in (captures[0] if captures else ()):
             traj[k] = torch.stack([c[k] for c in captures])
 
+    @spanned("ppo.rollout")
     @torch.no_grad()
     def rollout(self, state: TrainState, capture_traj: bool = False):
         """Returns (env_state, obs, traj dict of time-major [T, B, ...]
@@ -310,7 +315,8 @@ class PPO:
         env_state, obs, acc = state.env_state, state.obs, None
         captures = [] if capture_traj else None
         for t in range(self.cfg.num_steps_per_env):
-            mean, std, value = self.policy_apply(obs)
+            with span("ppo.act"):
+                mean, std, value = self.policy_apply(obs)
             env_state, out, acc = self.act_and_step(
                 traj, t, env_state, obs, mean, std, value, acc, captures)
             obs = out.obs
@@ -377,35 +383,40 @@ class PPO:
                  - cfg.entropy_coef * entropy)
         return total, (surrogate_loss, value_loss, entropy, kl)
 
+    @spanned("ppo.minibatch")
     def minibatch_update(self, batch) -> torch.Tensor:
         """One gradient step; returns [total, surrogate, value, entropy,
         kl] (detached)."""
         cfg = self.cfg
-        total, (surr, vloss, ent, kl) = self.loss(batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        kl = kl.detach()
-        if self.world is not None:
-            kl = all_reduce_grads(list(self.model.parameters()), kl)
+        with span("ppo.forward"):
+            total, (surr, vloss, ent, kl) = self.loss(batch)
+        with span("ppo.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with span("ppo.optimizer"):
+            kl = kl.detach()
+            if self.world is not None:
+                kl = all_reduce_grads(list(self.model.parameters()), kl)
 
-        if cfg.schedule == "adaptive":
-            # rsl_rl adaptive-KL LR, set before this minibatch's Adam step
-            lr = self.lr
-            new = torch.where(kl > cfg.desired_kl * 2.0,
-                              torch.clamp(lr / 1.5, min=cfg.min_lr), lr)
-            new = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
-                              torch.clamp(new * 1.5, max=cfg.max_lr), new)
-            lr.copy_(new)
+            if cfg.schedule == "adaptive":
+                # rsl_rl adaptive-KL LR, set before this minibatch's Adam step
+                lr = self.lr
+                new = torch.where(kl > cfg.desired_kl * 2.0,
+                                  torch.clamp(lr / 1.5, min=cfg.min_lr), lr)
+                new = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
+                                  torch.clamp(new * 1.5, max=cfg.max_lr), new)
+                lr.copy_(new)
 
-        # optax.clip_by_global_norm: scale by max / norm once norm >= max
-        grads = [p.grad for p in self.model.parameters()]
-        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = g_norm < cfg.max_grad_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / g_norm * cfg.max_grad_norm))
-        self.optimizer.step()
+            # optax.clip_by_global_norm: scale by max / norm once norm >= max
+            grads = [p.grad for p in self.model.parameters()]
+            g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            keep = g_norm < cfg.max_grad_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / g_norm * cfg.max_grad_norm))
+            self.optimizer.step()
         return torch.stack([total, surr, vloss, ent, kl]).detach()
 
+    @spanned("ppo.update")
     def update_epochs(self, dataset) -> torch.Tensor:
         """dataset: tuple of time-major [T, B, ...] tensors (obs, action,
         log_prob, value, returns, norm_adv, mean, std). One permutation
@@ -420,22 +431,23 @@ class PPO:
         n = t_len * b
         mb = n // nb
         cols = [x.reshape(n, -1) for x in dataset]
-        perm = torch.randperm(n, generator=self.generator,
-                              device=dataset[0].device)[: mb * nb]
-        split = 1 if cols[0].dtype != cols[1].dtype else 0
-        packed = cols[split:]
-        widths = [c.shape[1] for c in packed]
-        shuffled = torch.cat(packed, dim=1)[perm]
-        obs = cols[0][perm] if split else None
-        batches = []
-        for i in range(nb):
-            rows = slice(i * mb, (i + 1) * mb)
-            parts = list(torch.split(shuffled[rows], widths, dim=1))
-            if split:
-                parts.insert(0, obs[rows])
-            batches.append(tuple(
-                p if x.ndim == 3 else p[:, 0]
-                for p, x in zip(parts, dataset)))
+        with span("ppo.shuffle"):
+            perm = torch.randperm(n, generator=self.generator,
+                                  device=dataset[0].device)[: mb * nb]
+            split = 1 if cols[0].dtype != cols[1].dtype else 0
+            packed = cols[split:]
+            widths = [c.shape[1] for c in packed]
+            shuffled = torch.cat(packed, dim=1)[perm]
+            obs = cols[0][perm] if split else None
+            batches = []
+            for i in range(nb):
+                rows = slice(i * mb, (i + 1) * mb)
+                parts = list(torch.split(shuffled[rows], widths, dim=1))
+                if split:
+                    parts.insert(0, obs[rows])
+                batches.append(tuple(
+                    p if x.ndim == 3 else p[:, 0]
+                    for p, x in zip(parts, dataset)))
         metrics = [self.minibatch_update(batch)
                    for _ in range(cfg.num_learning_epochs)
                    for batch in batches]
@@ -443,6 +455,7 @@ class PPO:
 
     # ------------------------------------------------------ full iteration
 
+    @spanned("ppo.metrics")
     def iteration_metrics(self, traj, loss_metrics, acc
                           ) -> Dict[str, torch.Tensor]:
         """The iteration's metrics (the JAX learner's keys), with the
@@ -476,12 +489,13 @@ class PPO:
                         if k.startswith("traj/")})
         return metrics
 
+    @spanned("ppo.iteration")
     def train_iteration(self, state: TrainState, capture_traj: bool = False
                         ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration. With `capture_traj` the metrics also carry the
         rollout's `traj/*` channels ([T, 8, ...] tensors, not scalars)."""
         env_state, obs, traj, acc = self.rollout(state, capture_traj)
-        with torch.no_grad():
+        with torch.no_grad(), span("ppo.gae"):
             _, _, last_value = self.policy_apply(obs)
             _, returns, norm_adv = self.compute_gae(
                 traj["reward"], traj["value"], traj["done"], last_value)

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import span, spanned
 from .networks import _mlp, init_linears_, lecun_normal_, sigmoid
 from .ppo import PPO, TrainState
 
@@ -244,6 +245,7 @@ class RecurrentPPO(PPO):
 
     # ------------------------------------------------------------- rollout
 
+    @spanned("ppo.rollout")
     @torch.no_grad()
     def rollout(self, state: RecurrentTrainState, capture_traj: bool = False):
         """As `PPO.rollout`, with the carry reset by the previous step's
@@ -255,8 +257,9 @@ class RecurrentPPO(PPO):
         hidden, reset_prev = state.hidden, state.reset_prev
         captures = [] if capture_traj else None
         for t in range(self.cfg.num_steps_per_env):
-            hidden, mean, std, value = self.model.step(hidden, obs,
-                                                       reset_prev)
+            with span("ppo.act"):
+                hidden, mean, std, value = self.model.step(hidden, obs,
+                                                           reset_prev)
             traj["reset"][t] = reset_prev
             env_state, out, acc = self.act_and_step(
                 traj, t, env_state, obs, mean, std, value, acc, captures)
@@ -274,6 +277,7 @@ class RecurrentPPO(PPO):
         _, mean, std, value = self.model(h0, obs, reset)
         return self.ppo_loss(mean, std, value, *rest)
 
+    @spanned("ppo.update")
     def update_epochs(self, h0: Hidden, dataset) -> torch.Tensor:
         """dataset: time-major [T, B, ...] tensors (obs, reset, action,
         log_prob, value, returns, norm_adv, mean, std). One env-axis
@@ -286,11 +290,12 @@ class RecurrentPPO(PPO):
         nb = cfg.num_mini_batches
         n_envs = dataset[0].shape[1]
         mb = n_envs // nb
-        perm = torch.randperm(n_envs, generator=self.generator,
-                              device=dataset[0].device)
-        cols = perm[: mb * nb].reshape(nb, mb)
-        batches = [(gather_hidden(h0, c), *(x[:, c] for x in dataset))
-                   for c in cols]
+        with span("ppo.shuffle"):
+            perm = torch.randperm(n_envs, generator=self.generator,
+                                  device=dataset[0].device)
+            cols = perm[: mb * nb].reshape(nb, mb)
+            batches = [(gather_hidden(h0, c), *(x[:, c] for x in dataset))
+                       for c in cols]
         metrics = [self.minibatch_update(batch)
                    for _ in range(cfg.num_learning_epochs)
                    for batch in batches]
@@ -298,11 +303,12 @@ class RecurrentPPO(PPO):
 
     # ------------------------------------------------------ full iteration
 
+    @spanned("ppo.iteration")
     def train_iteration(self, state: RecurrentTrainState,
                         capture_traj: bool = False):
         env_state, obs, hidden, reset_prev, h0, traj, acc = self.rollout(
             state, capture_traj)
-        with torch.no_grad():
+        with torch.no_grad(), span("ppo.gae"):
             # the bootstrap value: one more step, its hidden thrown away
             _, _, _, last_value = self.model.step(hidden, obs, reset_prev)
             _, returns, norm_adv = self.compute_gae(

@@ -31,7 +31,9 @@ from ..parallel import distributed
 from ..parallel.mesh import World, local_num_envs, shard_seed
 from ..utils.config import configclass, to_dict
 from ..utils.device import resolve_device
-from ..utils.profiling import PhaseTimer, trace
+from ..utils.profiling import (
+    PhaseTimer, drain, enable_spans, span, span_summary, trace,
+)
 from .ppo import PPOCfg, TrainState, make_learner
 
 
@@ -72,7 +74,11 @@ class TrainCfg:
     profile: bool = False            # torch.profiler trace of iterations
                                      # 10-12 into <run_dir>/trace.json, on
                                      # rank 0; warns if it holds nothing of
-                                     # the card (utils/profiling.trace)
+                                     # the card (utils/profiling.trace).
+                                     # Also turns the program's spans on:
+                                     # each log row gets every span's calls
+                                     # and mean host and device ms since the
+                                     # last row (span/<name>/...)
     fast_prng: bool = True           # TPU-only (JAX PRNG impl); ignored
     compilation_cache: str = "auto"  # TPU-only (XLA disk cache); ignored
     target_return: Optional[float] = None
@@ -374,6 +380,8 @@ def train(run_cfg: RunConfig, env=None, max_iterations: Optional[int] = None,
                                    learner, world)
 
     n_iter = max_iterations or run_cfg.train.num_iterations
+    if run_cfg.train.profile:
+        enable_spans(True, env.device)
     try:
         state, last_metrics, saved = _train_loop(
             run_cfg, env, learner, state, logger, save_ckpts, writer, world,
@@ -381,6 +389,9 @@ def train(run_cfg: RunConfig, env=None, max_iterations: Optional[int] = None,
         if save_ckpts and saved != state.iteration:
             save_checkpoint(run_dir, learner, state, world, writer)
     finally:
+        if run_cfg.train.profile:
+            enable_spans(False)
+            drain()
         try:
             writer.wait()
         finally:
@@ -441,7 +452,9 @@ def _train_loop(run_cfg, env, learner, state, logger, save_ckpts, writer,
     iteration checkpointed or None). The NaN raise and the target-return
     stop read all-reduced metrics, so every rank leaves at the same
     iteration; IO that only process 0 does (`logger.cfg.no_log` is set on
-    the others) holds no collective."""
+    the others) holds no collective. With `train.profile` the program's
+    spans are on (see `train`) and drained at each log point, right after
+    the metric read has waited for the card."""
     log_cfg = run_cfg.train.log
     # env-steps of the whole job
     steps_per_iter = (run_cfg.agent.num_steps_per_env * env.num_envs
@@ -466,15 +479,17 @@ def _train_loop(run_cfg, env, learner, state, logger, save_ckpts, writer,
             state, metrics = learner.train_iteration(
                 state, capture_traj=want_video)
         if want_video:
-            with timer.phase("video"):
+            with timer.phase("video"), span("runner.video"):
                 _write_video(run_cfg, env, run_dir, it + 1, metrics, logger)
         if (it + 1) % log_cfg.log_every == 0 or it == n_iter - 1:
             # ONE batched device->host copy of every metric
-            with timer.phase("device_sync"):
+            with timer.phase("device_sync"), span("runner.log"):
                 names = list(metrics)
                 values = torch.stack([metrics[k].to(torch.float32)
                                       for k in names]).tolist()
                 host = dict(zip(names, values))
+            if run_cfg.train.profile:
+                host.update(span_summary(drain()))
             if host.pop("nan/detected", 0.0) > 0.0:
                 raise RuntimeError(
                     f"NaN detected in actions/losses at iteration {it + 1} "
@@ -502,7 +517,7 @@ def _train_loop(run_cfg, env, learner, state, logger, save_ckpts, writer,
                 break
         if save_ckpts and (it + 1) % log_cfg.checkpoint_every == 0:
             # the copy to host memory; the file is written off this thread
-            with timer.phase("checkpoint"):
+            with timer.phase("checkpoint"), span("runner.checkpoint"):
                 save_checkpoint(run_dir, learner, state, world, writer)
             saved = state.iteration
     profiling.close()

@@ -45,6 +45,7 @@ from ...ops.checks import check_rows
 from ...ops.kernel_rng import check_seed, philox_blocks
 from ...parallel.mesh import int32_shard_offset
 from ...utils.math import div
+from ...utils.profiling import span
 from ...sim.soa import (
     NUM_PARAM, NUM_STATE, asin_approx, atan2_approx, substep_soa,
 )
@@ -586,59 +587,64 @@ def make_fused_drift_step(task_cfg, env_cfg, ref_poses):
         if kernel_rng:
             # one draw of the env's generator per step, so a checkpoint's
             # generator state resumes a run exactly
-            seed = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32,
-                                 generator=env.generator, device=dev)
-            # the env of rank r of a job of several ranks offsets the seed
-            # by r * 0x3779B1 (int32 wrap), so no two ranks share a Philox
-            # stream even with equal generators (reference
-            # fused.py:600-604). The K1 route draws from the rank's own
-            # generator and needs nothing.
-            if env.shard:
-                seed = seed + int32_shard_offset(env.shard)
-            res = fused_drift_step_krng(
-                state.reward_weights, poses_on[dev], state.vehicle_mem,
-                state.packed_params, action.T.contiguous(), seed,
-                state.step_count[None], state.push_timers,
-                state.ep_return[None], state.ep_len[None], cfg)
+            with span("drift.draw"):
+                seed = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32,
+                                     generator=env.generator, device=dev)
+                # the env of rank r of a job of several ranks offsets the
+                # seed by r * 0x3779B1 (int32 wrap), so no two ranks share
+                # a Philox stream even with equal generators (reference
+                # fused.py:600-604). The K1 route draws from the rank's own
+                # generator and needs nothing.
+                if env.shard:
+                    seed = seed + int32_shard_offset(env.shard)
+            with span("drift.launch"):
+                res = fused_drift_step_krng(
+                    state.reward_weights, poses_on[dev], state.vehicle_mem,
+                    state.packed_params, action.T.contiguous(), seed,
+                    state.step_count[None], state.push_timers,
+                    state.ep_return[None], state.ep_len[None], cfg)
         else:
-            uniforms = torch.rand((NUM_UNIFORM, n), generator=env.generator,
-                                  device=dev)
-            normals = (torch.randn((OBS_ROWS, n), generator=env.generator,
-                                   device=dev)
-                       if cfg.enable_corruption
-                       else torch.zeros((OBS_ROWS, n), device=dev))
-            res = fused_drift_step(
-                state.reward_weights, poses_on[dev], state.vehicle_mem,
-                state.packed_params, action.T.contiguous(), uniforms,
-                normals, state.step_count[None], state.push_timers,
-                state.ep_return[None], state.ep_len[None], cfg)
-        packed, obs_rows, out, step_count, timers, ep_return, ep_len = res
+            with span("drift.draw"):
+                uniforms = torch.rand((NUM_UNIFORM, n),
+                                      generator=env.generator, device=dev)
+                normals = (torch.randn((OBS_ROWS, n),
+                                       generator=env.generator, device=dev)
+                           if cfg.enable_corruption
+                           else torch.zeros((OBS_ROWS, n), device=dev))
+            with span("drift.launch"):
+                res = fused_drift_step(
+                    state.reward_weights, poses_on[dev], state.vehicle_mem,
+                    state.packed_params, action.T.contiguous(), uniforms,
+                    normals, state.step_count[None], state.push_timers,
+                    state.ep_return[None], state.ep_len[None], cfg)
+        with span("drift.outputs"):
+            packed, obs_rows, out, step_count, timers, ep_return, ep_len = res
 
-        obs = obs_rows.T
-        reward = out[O_REWARD]
-        done = out[O_DONE] > 0.5
-        time_out = out[O_TIMEOUT] > 0.5
-        common_step = state.common_step + 1
-        info = {
-            "episode_return": out[O_EPRET],
-            "episode_length": out[O_EPLEN],
-        }
-        for i, name in enumerate(REWARD_NAMES):
-            info[f"rew/{name}"] = out[O_TERMS + i]
-        info["done/out_of_bounds"] = out[O_OOB] > 0.5
-        info["done/time_out"] = time_out
-        info["metrics/slip_deg"] = out[O_SLIP_DEG]
-        info["metrics/speed"] = out[O_SPEED]
+            obs = obs_rows.T
+            reward = out[O_REWARD]
+            done = out[O_DONE] > 0.5
+            time_out = out[O_TIMEOUT] > 0.5
+            common_step = state.common_step + 1
+            info = {
+                "episode_return": out[O_EPRET],
+                "episode_length": out[O_EPLEN],
+            }
+            for i, name in enumerate(REWARD_NAMES):
+                info[f"rew/{name}"] = out[O_TERMS + i]
+            info["done/out_of_bounds"] = out[O_OOB] > 0.5
+            info["done/time_out"] = time_out
+            info["metrics/slip_deg"] = out[O_SLIP_DEG]
+            info["metrics/speed"] = out[O_SPEED]
 
-        new_state = EnvState(
-            vehicle_mem=packed, packed_params=state.packed_params,
-            step_count=step_count[0], common_step=common_step,
-            reward_weights=env._curriculum_weights(state.reward_weights,
-                                                   common_step),
-            last_action=torch.where(done[:, None], 0.0, action),
-            command=state.command, command_timer=state.command_timer,
-            push_timers=timers, ep_return=ep_return[0], ep_len=ep_len[0])
-        return new_state, StepOutput(obs=obs, reward=reward, done=done,
-                                     time_out=time_out, info=info)
+            new_state = EnvState(
+                vehicle_mem=packed, packed_params=state.packed_params,
+                step_count=step_count[0], common_step=common_step,
+                reward_weights=env._curriculum_weights(state.reward_weights,
+                                                       common_step),
+                last_action=torch.where(done[:, None], 0.0, action),
+                command=state.command, command_timer=state.command_timer,
+                push_timers=timers, ep_return=ep_return[0], ep_len=ep_len[0])
+            return new_state, StepOutput(obs=obs, reward=reward, done=done,
+                                         time_out=time_out, info=info)
 
     return fused_step
