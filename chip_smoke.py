@@ -110,7 +110,23 @@ printing its final line:
              drift and recurrent runs never. One JSON line gives the first
              minibatch's KL estimate of each iteration of the four runs (a
              measurement: is it 0 on the card where the new policy is the
-             old one, or a rounding residue as XLA's is?).
+             old one, or a rounding residue as XLA's is?). Launches are
+             counted by host call, so a drift rollout's step graph
+             (`rl/ppo.py::StepGraph`) counts at its warm-up and capture;
+             `read_launches` takes those out and counts each replay
+             (`ppo.GRAPH_STEPS`) as the launches one step holds.
+   rollout_graph — the drift rollout's step graph against the eager loop,
+             3 iterations each from one seed and state, at 65,536 and 1024
+             envs on K1 and K4, and at 1024 with `fuse_input_layer` and in
+             bfloat16, the curriculum's first change crossed at step 14 of
+             the second iteration: the parameters, Adam, both generators,
+             the env state and every metric bit for bit, K1 or K4 carrying
+             every step (384 launches) and every step graphed (eager: none);
+             one JSON line a case with the iterations' host ms; a
+             checkpoint written after 2 graphed iterations at 65,536 envs
+             and resumed by an eager learner, whose next iteration must
+             equal the graphed one's bit for bit; then 2 graphed iterations
+             under `torch.profiler`, whose trace must hold 256 K1 kernels.
    fused   — the fused first layer against the unfused forward on the card
              at 1024 x 689 and 512 x 3208, float32 within 1e-5 and bfloat16
              within the bound of tests/test_torch_fused_input_layer.py;
@@ -1539,17 +1555,15 @@ def kernel_checks(device, card):
 NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
 
 
-def reset_launches():
-    from wheeledlab_torch.ops import (
-        kernel_rng, multi_step, physics_step, physics_step_hf,
-    )
-    from wheeledlab_torch.tasks.drift import fused
-
-    fused.LAUNCHES = physics_step.LAUNCHES = physics_step_hf.LAUNCHES = 0
-    fused.LAUNCHES_KRNG = multi_step.LAUNCHES = kernel_rng.LAUNCHES = 0
+# The launches each run of `StepGraph.step` made since the counters were
+# reset: the runs of its warm-up and its capture on a card (a host call that
+# launches nothing under capture). The counters count host calls, so
+# `read_launches` takes these out and counts each replay of the graph
+# (`ppo.GRAPH_STEPS`) as the launches one step holds.
+GRAPH_STEP_LAUNCHES = []
 
 
-def read_launches():
+def host_launches():
     from wheeledlab_torch.ops import (
         kernel_rng, multi_step, physics_step, physics_step_hf,
     )
@@ -1558,6 +1572,57 @@ def read_launches():
     return {"K1": fused.LAUNCHES, "K2": physics_step.LAUNCHES,
             "K3": physics_step_hf.LAUNCHES, "K4": fused.LAUNCHES_KRNG,
             "K5a": multi_step.LAUNCHES, "K5b": kernel_rng.LAUNCHES}
+
+
+def count_graph_steps():
+    """Record, once a process, the launches of each `StepGraph.step` run in
+    `GRAPH_STEP_LAUNCHES`."""
+    from wheeledlab_torch.rl import ppo
+
+    step = ppo.StepGraph.step
+    if getattr(step, "counted", False):
+        return
+
+    def counted(self, obs=None):
+        before = host_launches()
+        step(self, obs)
+        after = host_launches()
+        GRAPH_STEP_LAUNCHES.append({k: after[k] - before[k] for k in after})
+
+    counted.counted = True
+    ppo.StepGraph.step = counted
+
+
+def reset_launches():
+    from wheeledlab_torch.ops import (
+        kernel_rng, multi_step, physics_step, physics_step_hf,
+    )
+    from wheeledlab_torch.rl import ppo
+    from wheeledlab_torch.tasks.drift import fused
+
+    fused.LAUNCHES = physics_step.LAUNCHES = physics_step_hf.LAUNCHES = 0
+    fused.LAUNCHES_KRNG = multi_step.LAUNCHES = kernel_rng.LAUNCHES = 0
+    ppo.GRAPH_STEPS = ppo.EAGER_STEPS = 0
+    GRAPH_STEP_LAUNCHES.clear()
+    count_graph_steps()
+
+
+def read_launches():
+    """Kernel launches since `reset_launches`, a replay of a rollout's
+    step graph counted as the launches its step holds."""
+    from wheeledlab_torch.rl import ppo
+
+    host = host_launches()
+    if not ppo.GRAPH_STEPS:
+        return host
+    held = GRAPH_STEP_LAUNCHES[:1]
+    if not held or any(n != held[0] for n in GRAPH_STEP_LAUNCHES):
+        raise AssertionError(
+            f"{ppo.GRAPH_STEPS} graph replays, steps launching "
+            f"{GRAPH_STEP_LAUNCHES}: one graph a count, captured after "
+            "reset_launches")
+    return {k: v - sum(n[k] for n in GRAPH_STEP_LAUNCHES)
+            + ppo.GRAPH_STEPS * held[0][k] for k, v in host.items()}
 
 
 def check_launches(path, got, want):
@@ -1682,6 +1747,190 @@ def train_phase(device, logs, card):
                        "K2", envs=VISUAL_ENVS, fused=True, first_kls=kls)
     print_first_kls("train", kls, card)
     return drift, krng, elev, visual
+
+
+# rollout_graph_phase's cases: (envs, the route's kernel, agent settings);
+# every case starts its step counter GRAPH_BOUNDARY_LEAD steps under the
+# drift curriculum's first change (common_step 4750), so that the weights
+# change at step 14 of the second iteration
+ROLLOUT_GRAPH_CASES = (
+    (POD_ENVS, "K1", {}), (POD_ENVS, "K4", {}), (1024, "K1", {}),
+    (1024, "K4", {}), (1024, "K1", {"agent.fuse_input_layer": True}),
+    (1024, "K1", {"agent.compute_dtype": "bfloat16"}))
+GRAPH_ITERS = 3
+GRAPH_BOUNDARY, GRAPH_BOUNDARY_LEAD = 4750, 128 + 14
+GRAPH_PROFILED = 2
+
+
+def graph_config(envs, settings):
+    import wheeledlab_torch.rl  # noqa: F401  registers run configs
+    from wheeledlab_torch.utils.config import RUN_CONFIGS, apply_overrides
+
+    return apply_overrides(RUN_CONFIGS.get("RSS_DRIFT_CONFIG"), {
+        "num_envs": envs, "device": "cuda", **settings})
+
+
+def graph_learner(cfg, kernel, graphed):
+    """The learner `train()` would build for `cfg` (K4: the in-kernel-RNG
+    route, read when the env is built), on the graphed route or held to
+    the eager loop."""
+    from wheeledlab_torch.rl.runner import setup
+
+    if kernel == "K4":
+        os.environ["WHEELEDLAB_KERNEL_RNG"] = "1"
+    try:
+        _, env, learner = setup(cfg)
+    finally:
+        os.environ.pop("WHEELEDLAB_KERNEL_RNG", None)
+    if not graphed:
+        learner.graphs_rollout = lambda capture_traj: False
+    if learner.graphs_rollout(False) is not graphed:
+        raise AssertionError(f"the {'graphed' if graphed else 'eager'} "
+                             "route was not taken")
+    return learner
+
+
+def graph_iterations(learner, state, iters):
+    """`iters` train iterations; returns (state, metrics of each, host ms of
+    each, closed by a synchronize)."""
+    import torch
+
+    metrics, ms = [], []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        state, m = learner.train_iteration(state)
+        torch.cuda.synchronize()
+        ms.append(1000.0 * (time.perf_counter() - t0))
+        metrics.append(m)
+    return state, metrics, ms
+
+
+def differing(a, b, where=""):
+    """The names of the tensors of `a` and `b` (nested dicts, sequences,
+    dataclasses, plain values) that are not equal bit for bit."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(bits(a.detach()).cpu(),
+                                bits(b.detach()).cpu()))
+        return [] if same else [where]
+    if dataclasses.is_dataclass(a):
+        a, b = a.__dict__, b.__dict__
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            return [f"{where} keys"]
+        return [d for k in a for d in differing(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in differing(x, y, f"{where}/{i}")]
+    return [] if a == b else [where]
+
+
+def graph_snapshot(learner, state, metrics):
+    """What the graphed and the eager runs must agree on: the learner
+    (policy, Adam, its generator), the env's generator, the state and every
+    iteration's metrics."""
+    return {"learner": learner.state_dict(),
+            "env_generator": learner.env.generator.get_state(),
+            "env_state": state.env_state, "obs": state.obs,
+            "metrics": metrics}
+
+
+def graph_case(card, envs, kernel, settings):
+    """GRAPH_ITERS iterations graphed against the eager loop from the same
+    seed and state; raises unless every number is bit-equal and K1 or K4
+    carried every env step (the graph's launches counted a replay each)."""
+    import dataclasses
+
+    from wheeledlab_torch.rl import ppo
+
+    cfg = graph_config(envs, settings)
+    runs = {}
+    for graphed in (True, False):
+        learner = graph_learner(cfg, kernel, graphed)
+        state = learner.init_state()
+        state.env_state = dataclasses.replace(
+            state.env_state, common_step=GRAPH_BOUNDARY - GRAPH_BOUNDARY_LEAD)
+        reset_launches()
+        state, metrics, ms = graph_iterations(learner, state, GRAPH_ITERS)
+        steps = GRAPH_ITERS * cfg.agent.num_steps_per_env
+        check_launches(f"rollout graph {envs} {kernel} {settings} "
+                       f"{'graphed' if graphed else 'eager'}",
+                       read_launches(), {**NO_LAUNCHES, kernel: steps})
+        routes = (ppo.GRAPH_STEPS, ppo.EAGER_STEPS)
+        if routes != ((steps, 0) if graphed else (0, steps)):
+            raise AssertionError(f"graphed, eager steps {routes}")
+        runs[graphed] = (graph_snapshot(learner, state, metrics), ms)
+        del learner, state, metrics
+    bad = differing(runs[True][0], runs[False][0])
+    print(json.dumps({"name": "rollout graph against the eager loop",
+                      "envs": envs, "kernel": kernel, "settings": settings,
+                      "iterations": GRAPH_ITERS, "not_bit_equal": bad,
+                      "graphed_iteration_ms": runs[True][1],
+                      "eager_iteration_ms": runs[False][1], "card": card}),
+          flush=True)
+    if bad:
+        raise AssertionError(f"graphed and eager runs differ in {bad}")
+
+
+def graph_resume_case(card, logs):
+    """A checkpoint written after GRAPH_ITERS - 1 graphed iterations at
+    65,536 envs, resumed by a learner held to the eager loop for one
+    iteration, against the graphed learner's own next iteration: equal
+    bits. Then GRAPH_PROFILED graphed iterations under `torch.profiler`:
+    the trace must hold a K1 launch a step."""
+    import torch
+
+    from wheeledlab_torch.parallel.mesh import World
+    from wheeledlab_torch.rl.runner import (
+        CheckpointWriter, restore_checkpoint, save_checkpoint,
+    )
+
+    cfg = graph_config(POD_ENVS, {})
+    learner = graph_learner(cfg, "K1", True)
+    state, _, _ = graph_iterations(learner, learner.init_state(),
+                                   GRAPH_ITERS - 1)
+    writer = CheckpointWriter()
+    save_checkpoint(logs, learner, state, World(), writer)
+    writer.wait()
+    state, metrics, _ = graph_iterations(learner, state, 1)
+    graphed = graph_snapshot(learner, state, metrics)
+    resumed = graph_learner(cfg, "K1", False)
+    r_state, r_metrics, _ = graph_iterations(
+        resumed, restore_checkpoint(logs, 0, resumed), 1)
+    bad = differing(graphed, graph_snapshot(resumed, r_state, r_metrics))
+    del resumed, r_state, r_metrics
+    print(json.dumps({"name": "graphed checkpoint resumed eagerly",
+                      "envs": POD_ENVS, "not_bit_equal": bad, "card": card}),
+          flush=True)
+    if bad:
+        raise AssertionError(f"eager resume differs in {bad}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        graph_iterations(learner, state, GRAPH_PROFILED)
+    k1 = sum(1 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "fused_drift_kernel" in e.name)
+    want = GRAPH_PROFILED * cfg.agent.num_steps_per_env
+    print(json.dumps({"name": "graphed iterations profiled",
+                      "iterations": GRAPH_PROFILED, "k1_kernels": k1,
+                      "card": card}), flush=True)
+    if k1 != want:
+        raise AssertionError(f"the trace holds {k1} K1 kernels, not {want}")
+
+
+def rollout_graph_phase(device, logs, card):
+    """The graphed rollout (`rl/ppo.py::StepGraph`) against the eager loop
+    on the card (`ROLLOUT_GRAPH_CASES`), an eager resume of its checkpoint,
+    and its K1 launches in a profiler's trace."""
+    phase("rollout_graph")
+    for envs, kernel, settings in ROLLOUT_GRAPH_CASES:
+        graph_case(card, envs, kernel, settings)
+    graph_resume_case(card, os.path.join(logs, "rollout-graph"))
 
 
 # train_bench's short runs: (config, iterations); F1TENTH_DRIFT_CONFIG takes
@@ -3364,6 +3613,7 @@ def main():
         ((k1_launches, drift_ms), (k4_launches, krng_ms),
          (k3_launches, elev_ms), (vis_launches, vis_ms)) = train_phase(
             device, logs, card)
+        rollout_graph_phase(device, logs, card)
         rnn_launches, rnn_ms, rnn_split = recurrent_train_phase(device, logs,
                                                                 card)
         bf16_ms = bf16_train_phase(device, logs)

@@ -62,7 +62,7 @@ and how many draws each.
 
 | site | JAX draw | port draw | replay |
 |---|---|---|---|
-| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+10 <- rl/ppo.py:PPO.rollout+13` | output |
+| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+10 <- rl/ppo.py:PPO.rollout+15` | output |
 | epoch_perm | `rl/ppo.py:358` | `rl/ppo.py:PPO.update_epochs+16` | output |
 | rnn_action_noise | `rl/recurrent.py:242` | `rl/ppo.py:PPO.act_and_step+10 <- rl/recurrent.py:RecurrentPPO.rollout+16` | output |
 | rnn_env_perm | `rl/recurrent.py:328` | `rl/recurrent.py:RecurrentPPO.update_epochs+14` | output |

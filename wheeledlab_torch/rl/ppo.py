@@ -86,25 +86,30 @@ def init_info_acc(info: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return acc
 
 
+def info_increments(acc: Dict[str, torch.Tensor],
+                    info: Dict[str, torch.Tensor],
+                    done: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """What one rollout step adds to each accumulator of `acc`, in its
+    order: rew/*, metrics/* their per-step batch means (later / num_steps);
+    done/* their counts (later / n_done); the episode stats their
+    done-masked sums."""
+    dm = done.to(torch.float32)
+    inc = {}
+    for k in acc:
+        if k in ("episode_return", "episode_length"):
+            inc[k] = (info[k] * dm).sum()
+        elif k.startswith(("rew/", "metrics/")):
+            inc[k] = info[k].mean()
+        elif k.startswith("done/"):
+            inc[k] = info[k].sum()
+    return inc
+
+
 def accumulate_info(acc: Dict[str, torch.Tensor],
                     info: Dict[str, torch.Tensor],
                     done: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One rollout step of metric folding: rew/*, metrics/* accumulate
-    per-step batch means (later / num_steps); done/* accumulate counts
-    (later / n_done); episode stats accumulate done-masked sums."""
-    dm = done.to(torch.float32)
-    new = {
-        "episode_return": acc["episode_return"]
-        + (info["episode_return"] * dm).sum(),
-        "episode_length": acc["episode_length"]
-        + (info["episode_length"] * dm).sum(),
-    }
-    for k in acc:
-        if k.startswith(("rew/", "metrics/")):
-            new[k] = acc[k] + info[k].mean()
-        elif k.startswith("done/"):
-            new[k] = acc[k] + info[k].sum()
-    return new
+    """One rollout step of metric folding (`info_increments`)."""
+    return {k: acc[k] + v for k, v in info_increments(acc, info, done).items()}
 
 
 def finalize_info_acc(acc: Dict[str, torch.Tensor], num_steps: int,
@@ -193,6 +198,167 @@ class TrainState:
     iteration: int
 
 
+# Rollout steps taken by `StepGraph` (a replay each on a card, but a first
+# step whose obs lie otherwise than the graph reads them, which its step
+# runs uncaptured) and by the eager loop (`PPO.act_and_step`), counted like
+# the kernels' launches: the first over their sum is the graphed share of
+# rollout steps.
+GRAPH_STEPS = 0
+EAGER_STEPS = 0
+
+# the EnvState tensors a fused step reads and replaces, which the graph's
+# step copies back into its inputs (the others it reads, or the host keeps)
+CARRIED = ("vehicle_mem", "step_count", "last_action", "push_timers",
+           "ep_return", "ep_len")
+
+
+class StepGraph:
+    """A `PPO` rollout step as one CUDA graph, replayed once a step: the
+    policy's forward, the action's sample and log-prob, the env's fused step
+    (its random rows, K1 or K4, its outputs), the timeout bootstrap, the 8
+    stores into the trajectory at a device step index, and the info
+    folding. It works on buffers that live as long as it does: the obs (as
+    the fused step's (obs_dim, B) rows, so the policy reads the layout the
+    eager loop's steps read), the EnvState tensors the step writes, the (7,)
+    curriculum weights, the [T, B, ...] trajectory and the accumulators. The
+    step copies its outputs back into its inputs (about 11 MB at 65,536
+    envs), so one graph serves every step. `packed_params`, `command` and
+    `command_timer` are read where they are: `serves` checks that a rollout
+    hands in those same tensors.
+
+    On a card the graph is captured when the object is made: one warm-up
+    step on a copy of the incoming state, on the capture stream, then the
+    capture; both generators are registered with the graph and their states
+    put back afterwards, so the capture consumes no draw, a replay draws
+    what the eager step draws, and after a rollout the generators stand
+    where the eager loop leaves them. On the CPU `replay` runs the step as
+    it stands."""
+
+    def __init__(self, learner: "PPO", state: TrainState):
+        self.learner = learner
+        env, es = learner.env, state.env_state
+        dev = env.device
+        self.traj = learner.new_traj()
+        self.obs_rows = torch.empty((env.obs_dim, env.num_envs), device=dev)
+        self.state = dataclasses.replace(
+            es, reward_weights=torch.empty_like(es.reward_weights),
+            **{k: torch.empty_like(getattr(es, k)) for k in CARRIED})
+        self.t = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.acc_names: Optional[Tuple[str, ...]] = None
+        self.acc = torch.zeros((0,), device=dev)
+        self.weights_from: Optional[torch.Tensor] = None
+        self.graph = None
+        if dev.type == "cuda":
+            with span("ppo.graph_capture"):
+                self.capture(state)
+
+    def serves(self, env_state: EnvState) -> bool:
+        """Whether the graph reads this state's read-only tensors."""
+        return all(getattr(env_state, k) is getattr(self.state, k)
+                   for k in ("packed_params", "command", "command_timer"))
+
+    def capture(self, state: TrainState):
+        """Warm up on a copy of `state`, capture the step, put the
+        generators back."""
+        learner = self.learner
+        dev = learner.env.device
+        gens = (learner.generator, learner.env.generator)
+        saved = [g.get_state() for g in gens]
+        self.load(state)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.step()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
+        # thread_local: another thread (the checkpoint writer) may call the
+        # CUDA runtime meanwhile without spoiling the capture
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.step()
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+        self.graph = graph
+
+    def load(self, state: TrainState):
+        """Copy a rollout's incoming state in; zero the step index and the
+        accumulators."""
+        self.obs_rows.copy_(state.obs.T)
+        for k in CARRIED:
+            getattr(self.state, k).copy_(getattr(state.env_state, k))
+        self.t.zero_()
+        self.acc.zero_()
+        self.weights_from = None
+
+    def step(self, obs: Optional[torch.Tensor] = None):
+        """One rollout step on the buffers: what the graph holds. Given
+        `obs`, the policy reads it where it lies in place of the obs rows."""
+        learner = self.learner
+        if obs is None:
+            obs = self.obs_rows.T
+        with span("ppo.act"):
+            mean, std, value = learner.policy_apply(obs)
+        with span("ppo.record"):
+            action = mean + std * torch.randn(
+                mean.shape, generator=learner.generator, device=obs.device)
+            log_prob = gaussian_log_prob(mean, std, action)
+        new, out = learner.env.step(self.state, action)
+        with span("ppo.record"):
+            reward = out.reward + learner.cfg.gamma * value * out.time_out
+            for k, v in (("obs", obs), ("action", action),
+                         ("log_prob", log_prob), ("value", value),
+                         ("reward", reward), ("done", out.done),
+                         ("mean", mean), ("std", std)):
+                buf = self.traj[k]
+                buf.index_copy_(0, self.t, v.to(buf.dtype)[None])
+            if self.acc_names is None:
+                self.acc_names = tuple(init_info_acc(out.info))
+                self.acc = torch.zeros((len(self.acc_names),),
+                                       device=obs.device)
+            inc = info_increments(dict.fromkeys(self.acc_names), out.info,
+                                  out.done)
+            self.acc.add_(torch.stack(list(inc.values())))
+            self.obs_rows.copy_(out.obs.T)
+            for k in CARRIED:
+                getattr(self.state, k).copy_(getattr(new, k))
+            self.t.add_(1)
+
+    def lays_out_like(self, obs: torch.Tensor) -> bool:
+        """Whether `obs` lies as the policy's input does in the graph."""
+        return obs.stride() == self.obs_rows.T.stride()
+
+    def replay(self, weights: torch.Tensor,
+               obs: Optional[torch.Tensor] = None):
+        """One step with the curriculum `weights`, copied in when they are
+        another tensor than the last step's (the env's cached tensors, so
+        identity is the test and nothing is read back). Given `obs` (laid
+        out otherwise than the graph reads), the step runs uncaptured."""
+        global GRAPH_STEPS
+        if weights is not self.weights_from:
+            self.state.reward_weights.copy_(weights)
+            self.weights_from = weights
+        with span("ppo.step_graph"):
+            if self.graph is None or obs is not None:
+                self.step(obs)
+            else:
+                self.graph.replay()
+        GRAPH_STEPS += 1
+
+    def result(self, env_state: EnvState, common_step: int,
+               weights: torch.Tensor):
+        """(env_state, obs, traj, acc) as `PPO.rollout` returns them, from
+        copies of the buffers, so that no caller holds a tensor the next
+        rollout overwrites; the trajectory is the graph's own (every reader
+        of it is done within the iteration)."""
+        new = dataclasses.replace(
+            env_state, common_step=common_step, reward_weights=weights,
+            **{k: getattr(self.state, k).clone() for k in CARRIED})
+        acc = dict(zip(self.acc_names, self.acc.clone().unbind()))
+        return new, self.obs_rows.clone().T, dict(self.traj), acc
+
+
 class PPO:
     """The learner: the policy, its optimizer and the learner's generator
     (action noise and the epoch permutation)."""
@@ -218,6 +384,7 @@ class PPO:
             shard_seed = mesh.shard_seed(seed, world.rank if world else 0)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(shard_seed + 2)
+        self.step_graph: Optional[StepGraph] = None
 
     def build_model(self, generator: torch.Generator) -> ActorCritic:
         cfg, env = self.cfg, self.env
@@ -296,6 +463,8 @@ class PPO:
             acc = accumulate_info(acc, out.info, out.done)
             if captures is not None:
                 captures.append(traj_captures(env_state))
+        global EAGER_STEPS
+        EAGER_STEPS += 1
         return env_state, out, acc
 
     @staticmethod
@@ -310,7 +479,9 @@ class PPO:
         """Returns (env_state, obs, traj dict of time-major [T, B, ...]
         tensors, info accumulators). With `capture_traj` the dict also holds
         the `traj/*` channels of `traj_captures`, [T, 8, ...], for a
-        video."""
+        video. Replays the step graph where `graphs_rollout` says so."""
+        if self.graphs_rollout(capture_traj):
+            return self.graphed_rollout(state)
         traj = self.new_traj()
         env_state, obs, acc = state.env_state, state.obs, None
         captures = [] if capture_traj else None
@@ -322,6 +493,38 @@ class PPO:
             obs = out.obs
         self.stack_captures(traj, captures)
         return env_state, obs, traj, acc
+
+    def graphs_rollout(self, capture_traj: bool) -> bool:
+        """Whether `rollout` replays a `StepGraph`: `PPO` itself (a
+        subclass keeps its own rollout), on a card, on an env that takes its
+        task's fused step, with no `traj/*` capture."""
+        env = self.env
+        return (type(self) is PPO and env.device.type == "cuda"
+                and not capture_traj and env.task.fused_step is not None
+                and not env.per_vehicle)
+
+    def graphed_rollout(self, state: TrainState):
+        """`rollout` as replays of the learner's `StepGraph` (made at the
+        first call, and again for a state whose read-only tensors are other
+        ones). The host keeps the step counter and the curriculum weights
+        as the eager loop does."""
+        g = self.step_graph
+        if g is None or not g.serves(state.env_state):
+            g = self.step_graph = StepGraph(self, state)
+        g.load(state)
+        env = self.env
+        common_step = state.env_state.common_step
+        weights = state.env_state.reward_weights
+        # a float32 product's bits follow its input's layout (at 1024 envs
+        # on an H100): obs that lie otherwise than the graph's rows (a
+        # reset's, a checkpoint's) are read where they lie, as the eager
+        # loop's first step reads them
+        first = None if g.lays_out_like(state.obs) else state.obs
+        for t in range(self.cfg.num_steps_per_env):
+            g.replay(weights, first if t == 0 else None)
+            common_step += 1
+            weights = env._curriculum_weights(weights, common_step)
+        return g.result(state.env_state, common_step, weights)
 
     # ----------------------------------------------------------------- GAE
 
