@@ -110,19 +110,23 @@ printing its final line:
              drift and recurrent runs never. One JSON line gives the first
              minibatch's KL estimate of each iteration of the four runs (a
              measurement: is it 0 on the card where the new policy is the
-             old one, or a rounding residue as XLA's is?). Launches are
-             counted by host call, so a drift rollout's step graph
-             (`rl/ppo.py::StepGraph`) counts at its warm-up and capture;
-             `read_launches` takes those out and counts each replay
-             (`ppo.GRAPH_STEPS`) as the launches one step holds.
-   rollout_graph — the drift rollout's step graph against the eager loop,
-             3 iterations each from one seed and state, at 65,536 and 1024
-             envs on K1 and K4, and at 1024 with `fuse_input_layer` and in
-             bfloat16, the curriculum's first change crossed at step 14 of
-             the second iteration: the parameters, Adam, both generators,
-             the env state and every metric bit for bit, K1 or K4 carrying
-             every step (384 launches) and every step graphed (eager: none);
-             one JSON line a case with the iterations' host ms; a
+             old one, or a rounding residue as XLA's is?). Launches and
+             fused applies are counted by host call, so a rollout's step
+             graph (`rl/ppo.py::StepGraph`) counts at its first step,
+             warm-up and capture; `read_launches` and `read_fused_calls`
+             take those out and count each replay (`ppo.GRAPH_STEPS`) as
+             the calls one step holds.
+   rollout_graph — the rollout's step graph against the eager loop, 3
+             iterations each from one seed and state: drift at 65,536 and
+             1024 envs on K1 and K4, and at 1024 with `fuse_input_layer`
+             and in bfloat16; RSS_VISUAL_CONFIG (the generic step, K2) and
+             RSS_ELEV_CONFIG (the generic step, K3) at 1024; a curriculum's
+             first change crossed at step 14 of the second iteration
+             (drift, elevation): the parameters, Adam, both generators,
+             the env state and every metric bit for bit, the route's kernel
+             carrying every step (384 launches) and every step graphed
+             (eager: none); one JSON line a case with the graphed share of
+             rollout steps and each route's iterations' host ms; a
              checkpoint written after 2 graphed iterations at 65,536 envs
              and resumed by an eager learner, whose next iteration must
              equal the graphed one's bit for bit; then 2 graphed iterations
@@ -1555,11 +1559,12 @@ def kernel_checks(device, card):
 NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
 
 
-# The launches each run of `StepGraph.step` made since the counters were
-# reset: the runs of its warm-up and its capture on a card (a host call that
-# launches nothing under capture). The counters count host calls, so
-# `read_launches` takes these out and counts each replay of the graph
-# (`ppo.GRAPH_STEPS`) as the launches one step holds.
+# The launches and fused applies (`"fused"`) each run of `StepGraph.step`
+# made since the counters were reset: the runs of its first step, its
+# warm-up and its capture on a card (a host call that launches nothing
+# under capture). The counters count host calls, so `read_launches` and
+# `read_fused_calls` take these out and count each replay of the graph
+# (`ppo.GRAPH_STEPS`) as the calls one step holds.
 GRAPH_STEP_LAUNCHES = []
 
 
@@ -1574,9 +1579,16 @@ def host_launches():
             "K5a": multi_step.LAUNCHES, "K5b": kernel_rng.LAUNCHES}
 
 
+def host_calls():
+    """The launch counters and the fused apply's call counter."""
+    from wheeledlab_torch.rl import networks
+
+    return {**host_launches(), "fused": networks.FUSED_CALLS}
+
+
 def count_graph_steps():
-    """Record, once a process, the launches of each `StepGraph.step` run in
-    `GRAPH_STEP_LAUNCHES`."""
+    """Record, once a process, the launches and fused applies of each
+    `StepGraph.step` run in `GRAPH_STEP_LAUNCHES`."""
     from wheeledlab_torch.rl import ppo
 
     step = ppo.StepGraph.step
@@ -1584,9 +1596,9 @@ def count_graph_steps():
         return
 
     def counted(self, obs=None):
-        before = host_launches()
+        before = host_calls()
         step(self, obs)
-        after = host_launches()
+        after = host_calls()
         GRAPH_STEP_LAUNCHES.append({k: after[k] - before[k] for k in after})
 
     counted.counted = True
@@ -1610,9 +1622,23 @@ def reset_launches():
 def read_launches():
     """Kernel launches since `reset_launches`, a replay of a rollout's
     step graph counted as the launches its step holds."""
+    return graph_held(host_launches())
+
+
+def read_fused_calls():
+    """`fused_actor_critic_apply` calls since `networks.FUSED_CALLS` was
+    zeroed (after `reset_launches`), a replay of a rollout's step graph
+    counted as the calls its step holds."""
+    from wheeledlab_torch.rl import networks
+
+    return graph_held({"fused": networks.FUSED_CALLS})["fused"]
+
+
+def graph_held(host):
+    """The host-call counts `host` with the runs of `StepGraph.step` taken
+    out and each replay counted as the calls one step holds."""
     from wheeledlab_torch.rl import ppo
 
-    host = host_launches()
     if not ppo.GRAPH_STEPS:
         return host
     held = GRAPH_STEP_LAUNCHES[:1]
@@ -1686,6 +1712,7 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
         state, last = train(cfg)
     torch.cuda.synchronize()
     launches = read_launches()
+    fused_calls = read_fused_calls()
     if first_kls is not None:
         per_iteration = (cfg.agent.num_learning_epochs
                          * cfg.agent.num_mini_batches)
@@ -1696,10 +1723,10 @@ def train_run(device, logs, config, run_name, obs_dim, kernel, envs=1024,
     agent = cfg.agent
     applies = iters * (agent.num_steps_per_env + 1
                        + agent.num_learning_epochs * agent.num_mini_batches)
-    print(f"{config}: fused_actor_critic_apply calls {networks.FUSED_CALLS}"
+    print(f"{config}: fused_actor_critic_apply calls {fused_calls}"
           f" of {applies} policy applies", flush=True)
-    if networks.FUSED_CALLS != (applies if fused else 0):
-        raise AssertionError(f"{config}: {networks.FUSED_CALLS} fused "
+    if fused_calls != (applies if fused else 0):
+        raise AssertionError(f"{config}: {fused_calls} fused "
                              f"applies, expected {applies if fused else 0}")
     with open(os.path.join(logs, run_name, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -1749,25 +1776,40 @@ def train_phase(device, logs, card):
     return drift, krng, elev, visual
 
 
-# rollout_graph_phase's cases: (envs, the route's kernel, agent settings);
-# every case starts its step counter GRAPH_BOUNDARY_LEAD steps under the
-# drift curriculum's first change (common_step 4750), so that the weights
-# change at step 14 of the second iteration
+# rollout_graph_phase's cases: (config, envs, the route's kernel, agent
+# settings); every case of a task with a curriculum starts its step counter
+# GRAPH_BOUNDARY_LEAD steps under the curriculum's first change (drift's at
+# common_step 4750, elevation's at 9800), so that the weights change at
+# step 14 of the second iteration
+DRIFT = "RSS_DRIFT_CONFIG"
 ROLLOUT_GRAPH_CASES = (
-    (POD_ENVS, "K1", {}), (POD_ENVS, "K4", {}), (1024, "K1", {}),
-    (1024, "K4", {}), (1024, "K1", {"agent.fuse_input_layer": True}),
-    (1024, "K1", {"agent.compute_dtype": "bfloat16"}))
+    (DRIFT, POD_ENVS, "K1", {}), (DRIFT, POD_ENVS, "K4", {}),
+    (DRIFT, 1024, "K1", {}), (DRIFT, 1024, "K4", {}),
+    (DRIFT, 1024, "K1", {"agent.fuse_input_layer": True}),
+    (DRIFT, 1024, "K1", {"agent.compute_dtype": "bfloat16"}),
+    ("RSS_VISUAL_CONFIG", 1024, "K2", {}),
+    ("RSS_ELEV_CONFIG", 1024, "K3", {}))
 GRAPH_ITERS = 3
-GRAPH_BOUNDARY, GRAPH_BOUNDARY_LEAD = 4750, 128 + 14
+GRAPH_BOUNDARY_LEAD = 128 + 14
 GRAPH_PROFILED = 2
 
 
-def graph_config(envs, settings):
+def graph_config(config, envs, settings):
     import wheeledlab_torch.rl  # noqa: F401  registers run configs
     from wheeledlab_torch.utils.config import RUN_CONFIGS, apply_overrides
 
-    return apply_overrides(RUN_CONFIGS.get("RSS_DRIFT_CONFIG"), {
+    return apply_overrides(RUN_CONFIGS.get(config), {
         "num_envs": envs, "device": "cuda", **settings})
+
+
+def curriculum_change(env):
+    """The step counter at which the env's curriculum first changes its
+    weights (`WheeledEnv._curriculum_weights`); None without one."""
+    terms = env.task.curriculum
+    if not terms:
+        return None
+    return (min(t.episodes_per_increase for t in terms) - 1) \
+        * env.max_episode_length
 
 
 def graph_learner(cfg, kernel, graphed):
@@ -1839,36 +1881,43 @@ def graph_snapshot(learner, state, metrics):
             "metrics": metrics}
 
 
-def graph_case(card, envs, kernel, settings):
+def graph_case(card, config, envs, kernel, settings):
     """GRAPH_ITERS iterations graphed against the eager loop from the same
-    seed and state; raises unless every number is bit-equal and K1 or K4
-    carried every env step (the graph's launches counted a replay each)."""
+    seed and state; raises unless every number is bit-equal and the route's
+    kernel carried every env step (the graph's launches counted a replay
+    each)."""
     import dataclasses
 
     from wheeledlab_torch.rl import ppo
 
-    cfg = graph_config(envs, settings)
-    runs = {}
+    cfg = graph_config(config, envs, settings)
+    runs, shares = {}, {}
     for graphed in (True, False):
         learner = graph_learner(cfg, kernel, graphed)
         state = learner.init_state()
-        state.env_state = dataclasses.replace(
-            state.env_state, common_step=GRAPH_BOUNDARY - GRAPH_BOUNDARY_LEAD)
+        change = curriculum_change(learner.env)
+        if change is not None:
+            state.env_state = dataclasses.replace(
+                state.env_state, common_step=change - GRAPH_BOUNDARY_LEAD)
         reset_launches()
         state, metrics, ms = graph_iterations(learner, state, GRAPH_ITERS)
         steps = GRAPH_ITERS * cfg.agent.num_steps_per_env
-        check_launches(f"rollout graph {envs} {kernel} {settings} "
+        check_launches(f"rollout graph {config} {envs} {kernel} {settings} "
                        f"{'graphed' if graphed else 'eager'}",
                        read_launches(), {**NO_LAUNCHES, kernel: steps})
         routes = (ppo.GRAPH_STEPS, ppo.EAGER_STEPS)
         if routes != ((steps, 0) if graphed else (0, steps)):
             raise AssertionError(f"graphed, eager steps {routes}")
+        shares[graphed] = routes[0] / sum(routes)
         runs[graphed] = (graph_snapshot(learner, state, metrics), ms)
         del learner, state, metrics
     bad = differing(runs[True][0], runs[False][0])
     print(json.dumps({"name": "rollout graph against the eager loop",
-                      "envs": envs, "kernel": kernel, "settings": settings,
-                      "iterations": GRAPH_ITERS, "not_bit_equal": bad,
+                      "config": config, "envs": envs, "kernel": kernel,
+                      "settings": settings, "iterations": GRAPH_ITERS,
+                      "not_bit_equal": bad,
+                      "graphed_share_of_steps": shares[True],
+                      "eager_route_graphed_share": shares[False],
                       "graphed_iteration_ms": runs[True][1],
                       "eager_iteration_ms": runs[False][1], "card": card}),
           flush=True)
@@ -1889,7 +1938,7 @@ def graph_resume_case(card, logs):
         CheckpointWriter, restore_checkpoint, save_checkpoint,
     )
 
-    cfg = graph_config(POD_ENVS, {})
+    cfg = graph_config(DRIFT, POD_ENVS, {})
     learner = graph_learner(cfg, "K1", True)
     state, _, _ = graph_iterations(learner, learner.init_state(),
                                    GRAPH_ITERS - 1)
@@ -1928,8 +1977,8 @@ def rollout_graph_phase(device, logs, card):
     on the card (`ROLLOUT_GRAPH_CASES`), an eager resume of its checkpoint,
     and its K1 launches in a profiler's trace."""
     phase("rollout_graph")
-    for envs, kernel, settings in ROLLOUT_GRAPH_CASES:
-        graph_case(card, envs, kernel, settings)
+    for config, envs, kernel, settings in ROLLOUT_GRAPH_CASES:
+        graph_case(card, config, envs, kernel, settings)
     graph_resume_case(card, os.path.join(logs, "rollout-graph"))
 
 

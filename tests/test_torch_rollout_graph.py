@@ -2,15 +2,18 @@
 its step, run as it stands on the CPU, gives the eager loop's
 (`act_and_step`'s) trajectory, accumulators, EnvState, obs and both
 generators' states bit for bit over whole train iterations, a curriculum
-boundary crossed mid-rollout included; the route is taken only by `PPO` on
-a card with the fused step and no `traj/*` capture, and `GRAPH_STEPS` and
-`EAGER_STEPS` count which route stepped. On a card, the captured graph
-against the eager loop (skipped without one)."""
+boundary crossed mid-rollout included, on drift's fused step and on the
+generic step (the visual and elevation tasks); the EnvState tensors it
+carries are those the step replaces; the route is taken only by `PPO` on
+a card, off the per-vehicle route and with no `traj/*` capture, and
+`GRAPH_STEPS` and `EAGER_STEPS` count which route stepped. On a card, the
+captured graph against the eager loop (skipped without one)."""
 
 import dataclasses
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import wheeledlab_torch.rl  # noqa: F401  registers run configs
 from wheeledlab_torch.envs.env import EnvState
@@ -24,6 +27,20 @@ T = 8
 # the drift curriculum's first change (side_slip's, after 20 episodes of
 # 250 steps)
 BOUNDARY = 4750
+
+VISUAL, ELEVATION = "MushrVisualRL-v0", "MushrElevationRL-v0"
+# the generic step's tasks cut for the CPU: a small visual map, and
+# episodes of 5 (visual) and 6 (elevation) steps, so that envs reset within
+# a rollout, with elevation's goals resampled every 3 steps
+GENERIC = {
+    VISUAL: {"map_rows": 100, "map_cols": 100, "env_rows": 20,
+             "env_cols": 20, "group_rows": 5, "group_cols": 5,
+             "episode_length_s": 1.0},
+    ELEVATION: {"episode_length_s": 0.6, "goal_resample_s": 0.3},
+}
+# elevation's first curriculum change (vel_towards_goal's, after 50
+# episodes of 6 steps)
+ELEVATION_BOUNDARY = 294
 
 
 def bits(x):
@@ -72,8 +89,10 @@ def cloned(x):
     return x
 
 
-def learner_of(envs, device="cpu", seed=3, task="MushrDriftRL-v0", **agent):
-    env = make_env(task, num_envs=envs, device=device, seed=seed)
+def learner_of(envs, device="cpu", seed=3, task="MushrDriftRL-v0",
+               use_kernels=None, **agent):
+    env = make_env(task, num_envs=envs, device=device, seed=seed,
+                   overrides=GENERIC.get(task), use_kernels=use_kernels)
     cfg = PPOCfg(num_steps_per_env=T, num_learning_epochs=2,
                  num_mini_batches=2, **agent)
     return make_learner(env, cfg, seed=seed)
@@ -122,13 +141,23 @@ def assert_runs_equal(graphed, eager):
                 e_learner.env.generator.get_state(), "env generator")
 
 
+# (task, envs, agent settings, starting common_step, in-kernel RNG)
 CASES = {
-    "k1_64": (64, {}, None, False),
-    "k1_256": (256, {}, None, False),
-    "curriculum_boundary": (64, {}, BOUNDARY - 3, False),
-    "kernel_rng": (64, {}, BOUNDARY - 11, True),
-    "fused_input_layer": (64, {"fuse_input_layer": True}, None, False),
-    "bfloat16": (128, {"compute_dtype": "bfloat16"}, None, False),
+    "k1_64": ("MushrDriftRL-v0", 64, {}, None, False),
+    "k1_256": ("MushrDriftRL-v0", 256, {}, None, False),
+    "curriculum_boundary": ("MushrDriftRL-v0", 64, {}, BOUNDARY - 3, False),
+    "kernel_rng": ("MushrDriftRL-v0", 64, {}, BOUNDARY - 11, True),
+    "fused_input_layer": ("MushrDriftRL-v0", 64, {"fuse_input_layer": True},
+                          None, False),
+    "bfloat16": ("MushrDriftRL-v0", 128, {"compute_dtype": "bfloat16"},
+                 None, False),
+    "visual_16": (VISUAL, 16, {}, None, False),
+    "visual_fused_input_layer": (VISUAL, 16, {"fuse_input_layer": True,
+                                              "activation": "relu"},
+                                 None, False),
+    "elevation_16": (ELEVATION, 16, {}, None, False),
+    "elevation_curriculum_boundary": (ELEVATION, 16, {},
+                                      ELEVATION_BOUNDARY - 5, False),
 }
 
 
@@ -138,16 +167,17 @@ def test_graph_step_uncaptured_equals_eager_loop(case, monkeypatch):
     (no capture on the CPU) against the eager loop: every rollout's traj,
     accumulators, EnvState and obs, the final state, the metrics, the
     learner (policy, Adam, its generator) and the env's generator, bit for
-    bit. The curriculum cases start `common_step` 3 and 11 steps under a
+    bit. The curriculum cases start `common_step` a few steps under a
     change of the weights, so the weights buffer is refreshed mid-rollout
     (and the case on the in-kernel-RNG route draws its rows from the
-    per-step seed on the CPU)."""
-    envs, agent, common_step, krng = CASES[case]
+    per-step seed on the CPU). The visual and elevation cases take the
+    generic step, whose envs reset within a rollout here."""
+    task, envs, agent, common_step, krng = CASES[case]
     if krng:
         monkeypatch.setenv("WHEELEDLAB_KERNEL_RNG", "1")
     runs = []
     for graphed in (True, False):
-        learner = learner_of(envs, **agent)
+        learner = learner_of(envs, task=task, **agent)
         if graphed:
             learner.graphs_rollout = lambda capture_traj: not capture_traj
         steps = (ppo.GRAPH_STEPS, ppo.EAGER_STEPS)
@@ -163,17 +193,21 @@ def test_graph_step_uncaptured_equals_eager_loop(case, monkeypatch):
     assert graph is not None and graph.graph is None
 
 
+GRAPHED_ON_A_CARD = ("cpu", "elevation", "visual")
+
+
 @pytest.mark.parametrize("route", ["cpu", "elevation", "capture_traj",
-                                   "recurrent"])
+                                   "recurrent", "visual", "per_vehicle"])
 def test_eager_routes(route, monkeypatch):
-    """The CPU, an elevation env (the generic step), a rollout that
-    captures `traj/*` and the recurrent learner take the eager loop:
-    `EAGER_STEPS` advances by a step a step and `GRAPH_STEPS` stands. On a
-    card (faked for the question alone), the drift learner would take the
-    graph and these would not."""
-    kw = {"task": "MushrElevationRL-v0"} if route == "elevation" else {}
-    if route == "recurrent":
-        kw.update(policy_class="ActorCriticRecurrent", rnn_hidden_size=8)
+    """On the CPU every learner takes the eager loop: `EAGER_STEPS`
+    advances by a step a step and `GRAPH_STEPS` stands. On a card (faked
+    for the question alone), the drift learner and the generic step's
+    (elevation, visual) would take the graph; a rollout that captures
+    `traj/*`, the recurrent learner and the per-vehicle route would not."""
+    kw = {"elevation": {"task": ELEVATION}, "visual": {"task": VISUAL},
+          "per_vehicle": {"use_kernels": "off"},
+          "recurrent": {"policy_class": "ActorCriticRecurrent",
+                        "rnn_hidden_size": 8}}.get(route, {})
     learner = learner_of(16, **kw)
     capture = route == "capture_traj"
     assert not learner.graphs_rollout(capture)
@@ -182,7 +216,38 @@ def test_eager_routes(route, monkeypatch):
     assert (ppo.GRAPH_STEPS - steps[0], ppo.EAGER_STEPS - steps[1]) == (0, T)
     assert learner.step_graph is None
     monkeypatch.setattr(learner.env, "device", torch.device("cuda"))
-    assert learner.graphs_rollout(capture) is (route == "cpu")
+    assert learner.graphs_rollout(capture) is (route in GRAPHED_ON_A_CARD)
+
+
+# the EnvState tensors drift's fused step replaces
+FUSED_CARRIED = ("vehicle_mem", "step_count", "last_action", "push_timers",
+                 "ep_return", "ep_len")
+
+
+@pytest.mark.parametrize("task", ["MushrDriftRL-v0", VISUAL, ELEVATION])
+def test_carried_set_is_what_the_step_replaces(task):
+    """The graph carries, in EnvState's order, the tensors its first step
+    replaced: drift's fused step's six, and on the generic step the command
+    and its timer besides (the reset's `torch.where` makes them anew each
+    step, commands or none); the packed params it reads where they lie, and
+    `serves` a state that hands in those same tensors."""
+    learner = learner_of(16, task=task)
+    learner.graphs_rollout = lambda capture_traj: True
+    state = learner.init_state()
+    learner.rollout(state)
+    g = learner.step_graph
+    if task == "MushrDriftRL-v0":
+        assert g.carried == FUSED_CARRIED
+    else:
+        assert {"vehicle_mem", "step_count", "last_action", "command",
+                "command_timer", "ep_return", "ep_len"} <= set(g.carried)
+        assert g.carried == tuple(k for k in ppo.STEP_FIELDS
+                                  if k in g.carried)
+    assert "packed_params" not in g.carried
+    assert g.state.packed_params is state.env_state.packed_params
+    assert g.serves(state.env_state)
+    for k in g.carried:
+        assert getattr(g.state, k) is not getattr(state.env_state, k)
 
 
 def test_a_new_state_rebuilds_the_graph():
@@ -201,13 +266,8 @@ def test_a_new_state_rebuilds_the_graph():
     assert learner.step_graph is not graph
 
 
-def test_first_obs_read_where_it_lies(monkeypatch):
-    """A rollout whose obs lie otherwise than the graph's rows (a reset's,
-    contiguous) runs its first step on them where they lie, as the eager
-    loop's first step reads them; the obs a graphed rollout hands on lie
-    as the rows do, and the next rollout replays every step."""
-    learner = learner_of(16)
-    learner.graphs_rollout = lambda capture_traj: True
+def spy_on_steps(monkeypatch):
+    """The `obs` handed to each `StepGraph.step` from now on."""
     given, step = [], ppo.StepGraph.step
 
     def spy(self, obs=None):
@@ -215,15 +275,75 @@ def test_first_obs_read_where_it_lies(monkeypatch):
         return step(self, obs)
 
     monkeypatch.setattr(ppo.StepGraph, "step", spy)
+    return given
+
+
+def test_first_obs_read_where_it_lies(monkeypatch):
+    """The graph's first step, which lays its buffers out, reads a reset's
+    obs; a rollout whose obs lie otherwise than the graph's rows (a
+    reset's, contiguous, where drift's fused step returns rows) runs its
+    first step on them where they lie, as the eager loop's first step
+    reads them; the obs a graphed rollout hands on lie as the rows do, and
+    the next rollout replays every step."""
+    learner = learner_of(16)
+    learner.graphs_rollout = lambda capture_traj: True
+    given = spy_on_steps(monkeypatch)
     state = learner.init_state()
     assert state.obs.is_contiguous()
     env_state, obs, _, _ = learner.rollout(state)
-    assert given[0] is state.obs and given[1:] == [None] * (T - 1)
+    assert given[0] is state.obs and given[1] is state.obs
+    assert given[2:] == [None] * (T - 1)
+    assert learner.step_graph.obs.stride() == (1, 16)
     assert learner.step_graph.lays_out_like(obs)
     given.clear()
     learner.rollout(ppo.TrainState(env_state=env_state, obs=obs,
                                    iteration=1))
     assert given == [None] * T
+
+
+def test_generic_step_obs_buffer_is_contiguous(monkeypatch):
+    """The generic step returns contiguous (B, obs_dim) obs, as a reset
+    does: the graph's obs buffer is laid out so, and a graphed rollout from
+    a reset replays every step, its first one included."""
+    learner = learner_of(16, task=VISUAL)
+    learner.graphs_rollout = lambda capture_traj: True
+    given = spy_on_steps(monkeypatch)
+    state = learner.init_state()
+    _, obs, _, _ = learner.rollout(state)
+    g = learner.step_graph
+    assert g.obs.shape == (16, learner.env.obs_dim) and g.obs.is_contiguous()
+    assert given[0] is state.obs and given[1:] == [None] * T
+    assert obs.is_contiguous()
+
+
+class HostData(TorchDispatchMode):
+    """The shapes of the tensors made from host data (`torch.tensor`,
+    `new_tensor`: `aten.lift_fresh`) while open."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.lift_fresh.default:
+            self.shapes.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("task", ["MushrDriftRL-v0", VISUAL, ELEVATION])
+def test_step_copies_no_host_data(task):
+    """A CUDA graph cannot capture a copy from pageable host memory, so a
+    rollout step, once a first step has made its cached constants, makes
+    no tensor from host data but 0-dim scalars (an `x[..., 0] = 1.0`
+    fill, which launches a fill)."""
+    learner = learner_of(16, task=task)
+    learner.graphs_rollout = lambda capture_traj: True
+    learner.rollout(learner.init_state())
+    g = learner.step_graph
+    g.t.zero_()
+    with HostData() as made:
+        g.step()
+    assert all(shape == () for shape in made.shapes), made.shapes
 
 
 def test_graph_result_holds_no_buffer():
@@ -234,26 +354,31 @@ def test_graph_result_holds_no_buffer():
     env_state, obs, traj, acc = learner.rollout(learner.init_state())
     g = learner.step_graph
     owned = {t.untyped_storage().data_ptr() for t in
-             [g.obs_rows, g.acc, *(getattr(g.state, k) for k in ppo.CARRIED)]}
+             [g.obs, g.acc, *(getattr(g.state, k) for k in g.carried)]}
     handed = [obs, *acc.values(), *(getattr(env_state, k)
-                                    for k in ppo.CARRIED)]
+                                    for k in g.carried)]
     assert not owned & {t.untyped_storage().data_ptr() for t in handed}
     assert all(traj[k] is g.traj[k] for k in traj)
     assert isinstance(env_state, EnvState)
 
 
-def test_captured_graph_equals_eager_loop_on_a_card():
+@pytest.mark.card
+@pytest.mark.parametrize("task", ["MushrDriftRL-v0", VISUAL])
+def test_captured_graph_equals_eager_loop_on_a_card(task):
     """On a card: three iterations with the captured graph replayed against
-    the eager loop, at 1024 envs: equal parameters, metrics, states and
-    generator states, bit for bit."""
+    the eager loop, drift at 1024 envs across its curriculum's first change
+    and the visual task (the generic step) at 512: equal parameters,
+    metrics, states and generator states, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the graph is captured there")
+    drift = task == "MushrDriftRL-v0"
     runs = []
     for graphed in (True, False):
-        learner = learner_of(1024, device="cuda")
+        learner = learner_of(1024 if drift else 512, device="cuda", task=task)
         if not graphed:
             learner.graphs_rollout = lambda capture_traj: False
         assert learner.graphs_rollout(False) is graphed
-        runs.append((run(learner, 3, BOUNDARY - 20), learner))
+        runs.append((run(learner, 3, BOUNDARY - 20 if drift else None),
+                     learner))
     assert runs[0][1].step_graph.graph is not None
     assert_runs_equal(*runs)

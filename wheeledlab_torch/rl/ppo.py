@@ -206,64 +206,83 @@ class TrainState:
 GRAPH_STEPS = 0
 EAGER_STEPS = 0
 
-# the EnvState tensors a fused step reads and replaces, which the graph's
-# step copies back into its inputs (the others it reads, or the host keeps)
-CARRIED = ("vehicle_mem", "step_count", "last_action", "push_timers",
-           "ep_return", "ep_len")
+# the EnvState fields a step may replace, of which `StepGraph` carries
+# those its first step replaced (the curriculum weights and the step
+# counter stay with the host)
+STEP_FIELDS = tuple(f.name for f in dataclasses.fields(EnvState)
+                    if f.name not in ("common_step", "reward_weights"))
 
 
 class StepGraph:
     """A `PPO` rollout step as one CUDA graph, replayed once a step: the
-    policy's forward, the action's sample and log-prob, the env's fused step
-    (its random rows, K1 or K4, its outputs), the timeout bootstrap, the 8
-    stores into the trajectory at a device step index, and the info
-    folding. It works on buffers that live as long as it does: the obs (as
-    the fused step's (obs_dim, B) rows, so the policy reads the layout the
-    eager loop's steps read), the EnvState tensors the step writes, the (7,)
-    curriculum weights, the [T, B, ...] trajectory and the accumulators. The
-    step copies its outputs back into its inputs (about 11 MB at 65,536
-    envs), so one graph serves every step. `packed_params`, `command` and
-    `command_timer` are read where they are: `serves` checks that a rollout
-    hands in those same tensors.
+    policy's forward, the action's sample and log-prob, the env's step (the
+    task's fused step, or the generic step with its physics kernel and
+    camera), the timeout bootstrap, the 8 stores into the trajectory at a
+    device step index, and the info folding. It works on buffers that live
+    as long as it does: the obs (laid out as the env's step returns them:
+    drift's fused step's (obs_dim, B) rows seen transposed, the generic
+    step's contiguous (B, obs_dim), so the policy reads the layout the
+    eager loop's steps read), the EnvState tensors the step replaces
+    (`carried`), the (n_terms,) curriculum weights, the [T, B, ...]
+    trajectory and the accumulators. The step copies its outputs back into
+    its inputs, so one graph serves every step. The EnvState tensors the
+    step leaves in place (packed params, and drift's command and its timer)
+    are read where they are: `serves` checks that a rollout hands in those
+    same tensors.
 
-    On a card the graph is captured when the object is made: one warm-up
-    step on a copy of the incoming state, on the capture stream, then the
-    capture; both generators are registered with the graph and their states
-    put back afterwards, so the capture consumes no draw, a replay draws
-    what the eager step draws, and after a rollout the generators stand
-    where the eager loop leaves them. On the CPU `replay` runs the step as
-    it stands."""
+    The first step, run when the object is made on the incoming state and
+    obs (which a step only reads), lays the buffers out from what it
+    returns (`lay_out`). On a card a warm-up step on the buffers follows,
+    on the capture stream, then the capture. Both generators are put back
+    afterwards (and registered with the graph), so making the graph
+    consumes no draw, a replay draws what the eager step draws, and after a
+    rollout the generators stand where the eager loop leaves them. On the
+    CPU `replay` runs the step as it stands."""
 
     def __init__(self, learner: "PPO", state: TrainState):
         self.learner = learner
         env, es = learner.env, state.env_state
         dev = env.device
         self.traj = learner.new_traj()
-        self.obs_rows = torch.empty((env.obs_dim, env.num_envs), device=dev)
         self.state = dataclasses.replace(
-            es, reward_weights=torch.empty_like(es.reward_weights),
-            **{k: torch.empty_like(getattr(es, k)) for k in CARRIED})
+            es, reward_weights=es.reward_weights.clone())
+        self.obs: Optional[torch.Tensor] = None
+        self.carried: Tuple[str, ...] = ()
         self.t = torch.zeros((1,), dtype=torch.long, device=dev)
         self.acc_names: Optional[Tuple[str, ...]] = None
         self.acc = torch.zeros((0,), device=dev)
         self.weights_from: Optional[torch.Tensor] = None
         self.graph = None
-        if dev.type == "cuda":
-            with span("ppo.graph_capture"):
-                self.capture(state)
+        gens = (learner.generator, env.generator)
+        saved = [g.get_state() for g in gens]
+        with span("ppo.graph_capture"):
+            self.step(state.obs)
+            if dev.type == "cuda":
+                self.capture(state, gens)
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+
+    def lay_out(self, new: EnvState, obs: torch.Tensor):
+        """At the first step: carry the EnvState tensors the step replaced
+        in buffers of their own, and hold the obs in a buffer of the step's
+        obs' size and strides."""
+        self.carried = tuple(k for k in STEP_FIELDS
+                             if getattr(new, k) is not getattr(self.state, k))
+        self.state = dataclasses.replace(self.state, **{
+            k: torch.empty_like(getattr(self.state, k)) for k in self.carried})
+        self.obs = torch.empty_strided(obs.size(), obs.stride(),
+                                       dtype=obs.dtype, device=obs.device)
 
     def serves(self, env_state: EnvState) -> bool:
-        """Whether the graph reads this state's read-only tensors."""
+        """Whether the graph reads this state's tensors that the step
+        leaves in place."""
         return all(getattr(env_state, k) is getattr(self.state, k)
-                   for k in ("packed_params", "command", "command_timer"))
+                   for k in STEP_FIELDS if k not in self.carried)
 
-    def capture(self, state: TrainState):
-        """Warm up on a copy of `state`, capture the step, put the
-        generators back."""
-        learner = self.learner
-        dev = learner.env.device
-        gens = (learner.generator, learner.env.generator)
-        saved = [g.get_state() for g in gens]
+    def capture(self, state: TrainState, gens):
+        """Warm up on `state` in the buffers, on the capture stream, and
+        capture the step, registering the generators `gens`."""
+        dev = self.learner.env.device
         self.load(state)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -278,15 +297,13 @@ class StepGraph:
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
             self.step()
-        for g, s in zip(gens, saved):
-            g.set_state(s)
         self.graph = graph
 
     def load(self, state: TrainState):
         """Copy a rollout's incoming state in; zero the step index and the
         accumulators."""
-        self.obs_rows.copy_(state.obs.T)
-        for k in CARRIED:
+        self.obs.copy_(state.obs)
+        for k in self.carried:
             getattr(self.state, k).copy_(getattr(state.env_state, k))
         self.t.zero_()
         self.acc.zero_()
@@ -294,10 +311,11 @@ class StepGraph:
 
     def step(self, obs: Optional[torch.Tensor] = None):
         """One rollout step on the buffers: what the graph holds. Given
-        `obs`, the policy reads it where it lies in place of the obs rows."""
+        `obs`, the policy reads it where it lies in place of the obs
+        buffer."""
         learner = self.learner
         if obs is None:
-            obs = self.obs_rows.T
+            obs = self.obs
         with span("ppo.act"):
             mean, std, value = learner.policy_apply(obs)
         with span("ppo.record"):
@@ -320,14 +338,16 @@ class StepGraph:
             inc = info_increments(dict.fromkeys(self.acc_names), out.info,
                                   out.done)
             self.acc.add_(torch.stack(list(inc.values())))
-            self.obs_rows.copy_(out.obs.T)
-            for k in CARRIED:
+            if self.obs is None:
+                self.lay_out(new, out.obs)
+            self.obs.copy_(out.obs)
+            for k in self.carried:
                 getattr(self.state, k).copy_(getattr(new, k))
             self.t.add_(1)
 
     def lays_out_like(self, obs: torch.Tensor) -> bool:
         """Whether `obs` lies as the policy's input does in the graph."""
-        return obs.stride() == self.obs_rows.T.stride()
+        return obs.stride() == self.obs.stride()
 
     def replay(self, weights: torch.Tensor,
                obs: Optional[torch.Tensor] = None):
@@ -354,9 +374,9 @@ class StepGraph:
         of it is done within the iteration)."""
         new = dataclasses.replace(
             env_state, common_step=common_step, reward_weights=weights,
-            **{k: getattr(self.state, k).clone() for k in CARRIED})
+            **{k: getattr(self.state, k).clone() for k in self.carried})
         acc = dict(zip(self.acc_names, self.acc.clone().unbind()))
-        return new, self.obs_rows.clone().T, dict(self.traj), acc
+        return new, self.obs.clone(), dict(self.traj), acc
 
 
 class PPO:
@@ -496,18 +516,17 @@ class PPO:
 
     def graphs_rollout(self, capture_traj: bool) -> bool:
         """Whether `rollout` replays a `StepGraph`: `PPO` itself (a
-        subclass keeps its own rollout), on a card, on an env that takes its
-        task's fused step, with no `traj/*` capture."""
+        subclass keeps its own rollout), on a card, on an env of the packed
+        carry (not the per-vehicle route), with no `traj/*` capture."""
         env = self.env
         return (type(self) is PPO and env.device.type == "cuda"
-                and not capture_traj and env.task.fused_step is not None
-                and not env.per_vehicle)
+                and not capture_traj and not env.per_vehicle)
 
     def graphed_rollout(self, state: TrainState):
         """`rollout` as replays of the learner's `StepGraph` (made at the
-        first call, and again for a state whose read-only tensors are other
-        ones). The host keeps the step counter and the curriculum weights
-        as the eager loop does."""
+        first call, and again for a state whose tensors that the step leaves
+        in place are other ones). The host keeps the step counter and the
+        curriculum weights as the eager loop does."""
         g = self.step_graph
         if g is None or not g.serves(state.env_state):
             g = self.step_graph = StepGraph(self, state)
@@ -516,9 +535,10 @@ class PPO:
         common_step = state.env_state.common_step
         weights = state.env_state.reward_weights
         # a float32 product's bits follow its input's layout (at 1024 envs
-        # on an H100): obs that lie otherwise than the graph's rows (a
-        # reset's, a checkpoint's) are read where they lie, as the eager
-        # loop's first step reads them
+        # on an H100): obs that lie otherwise than the graph's obs buffer (a
+        # reset's rows where the step returns them transposed, a
+        # checkpoint's) are read where they lie, as the eager loop's first
+        # step reads them
         first = None if g.lays_out_like(state.obs) else state.obs
         for t in range(self.cfg.num_steps_per_env):
             g.replay(weights, first if t == 0 else None)

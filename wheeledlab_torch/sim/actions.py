@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils.config import configclass
-from ..utils.math import div
+from ..utils.math import const_vector, div
 
 
 @configclass
@@ -35,8 +35,8 @@ class ActionMapCfg:
 def process_actions(raw: torch.Tensor, cfg: ActionMapCfg) -> torch.Tensor:
     """Bound + scale + offset + no-reverse clamp
     (ackermann_actions.py:119-133)."""
-    scale = raw.new_tensor(cfg.scale)
-    offset = raw.new_tensor(cfg.offset)
+    scale = const_vector(tuple(cfg.scale), raw.dtype, raw.device)
+    offset = const_vector(tuple(cfg.offset), raw.dtype, raw.device)
     if cfg.bounding_strategy == "clip":
         out = torch.clamp(raw, -1.0, 1.0) * scale + offset
     elif cfg.bounding_strategy == "tanh":

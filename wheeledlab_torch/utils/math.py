@@ -7,7 +7,20 @@ leading batch dims.
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def const_vector(values: Tuple[float, ...], dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """`torch.tensor(values)` on `device`, made once a (values, dtype,
+    device): a step that reads it copies nothing from the host, which a
+    CUDA graph could not capture (`rl/ppo.py::StepGraph`). Shared by every
+    caller, so never written to."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def quat_identity() -> torch.Tensor:
@@ -48,7 +61,7 @@ def quat_integrate(q: torch.Tensor, omega_w: torch.Tensor,
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * const_vector((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
