@@ -111,26 +111,30 @@ printing its final line:
              minibatch's KL estimate of each iteration of the four runs (a
              measurement: is it 0 on the card where the new policy is the
              old one, or a rounding residue as XLA's is?). Launches and
-             fused applies are counted by host call, so a rollout's step
-             graph (`rl/ppo.py::StepGraph`) counts at its first step,
-             warm-up and capture; `read_launches` and `read_fused_calls`
-             take those out and count each replay (`ppo.GRAPH_STEPS`) as
-             the calls one step holds.
-   rollout_graph — the rollout's step graph against the eager loop, 3
-             iterations each from one seed and state: drift at 65,536 and
-             1024 envs on K1 and K4, and at 1024 with `fuse_input_layer`
-             and in bfloat16; RSS_VISUAL_CONFIG (the generic step, K2) and
-             RSS_ELEV_CONFIG (the generic step, K3) at 1024; a curriculum's
-             first change crossed at step 14 of the second iteration
-             (drift, elevation): the parameters, Adam, both generators,
-             the env state and every metric bit for bit, the route's kernel
-             carrying every step (384 launches) and every step graphed
-             (eager: none); one JSON line a case with the graphed share of
-             rollout steps and each route's iterations' host ms; a
-             checkpoint written after 2 graphed iterations at 65,536 envs
-             and resumed by an eager learner, whose next iteration must
-             equal the graphed one's bit for bit; then 2 graphed iterations
-             under `torch.profiler`, whose trace must hold 256 K1 kernels.
+             fused applies are counted by host call, so a rollout's
+             captured step (`rl/ppo.py::StepGraph`) counts at its first
+             step, warm-up and capture; `read_launches` and
+             `read_fused_calls` take those out and count each replay
+             (`ppo.REPLAYED_STEPS`) as the calls one step holds.
+   rollout_graph — the rollout's step captured against the same step run
+             as it stands, 3 iterations each from one seed and state:
+             drift at 65,536 and 1024 envs on K1 and K4, and at 1024 with
+             `fuse_input_layer` and in bfloat16; RSS_VISUAL_CONFIG (the
+             generic step, K2) and RSS_ELEV_CONFIG (the generic step, K3)
+             at 1024; a curriculum's first change crossed at step 14 of
+             the second iteration (drift, elevation): the parameters, Adam,
+             both generators, the env state and every metric bit for bit,
+             the route's kernel carrying every step (384 launches), every
+             step replayed but a first one whose obs lie otherwise
+             (uncaptured: none replayed); one JSON line a case with the
+             graphed share of rollout steps and each route's iterations'
+             host ms; one video iteration (`capture_traj`) at 1024 drift
+             envs, its `traj/*` channels and every other number bit for
+             bit; a checkpoint written after 2 captured iterations at
+             65,536 envs and resumed by an uncaptured learner, whose next
+             iteration must equal the captured one's bit for bit; then 2
+             captured iterations under `torch.profiler`, whose trace must
+             hold 256 K1 kernels.
    fused   — the fused first layer against the unfused forward on the card
              at 1024 x 689 and 512 x 3208, float32 within 1e-5 and bfloat16
              within the bound of tests/test_torch_fused_input_layer.py;
@@ -1560,11 +1564,12 @@ NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
 
 
 # The launches and fused applies (`"fused"`) each run of `StepGraph.step`
-# made since the counters were reset: the runs of its first step, its
-# warm-up and its capture on a card (a host call that launches nothing
+# that makes a graph made since the counters were reset: its first step,
+# its warm-up and its capture on a card (a host call that launches nothing
 # under capture). The counters count host calls, so `read_launches` and
 # `read_fused_calls` take these out and count each replay of the graph
-# (`ppo.GRAPH_STEPS`) as the calls one step holds.
+# (`ppo.REPLAYED_STEPS`) as the calls one step holds; a step run as it
+# stands counts as its host calls.
 GRAPH_STEP_LAUNCHES = []
 
 
@@ -1588,7 +1593,8 @@ def host_calls():
 
 def count_graph_steps():
     """Record, once a process, the launches and fused applies of each
-    `StepGraph.step` run in `GRAPH_STEP_LAUNCHES`."""
+    `StepGraph.step` run that makes a graph (of a step captured, before
+    its graph exists) in `GRAPH_STEP_LAUNCHES`."""
     from wheeledlab_torch.rl import ppo
 
     step = ppo.StepGraph.step
@@ -1599,7 +1605,9 @@ def count_graph_steps():
         before = host_calls()
         step(self, obs)
         after = host_calls()
-        GRAPH_STEP_LAUNCHES.append({k: after[k] - before[k] for k in after})
+        if self.captured and self.graph is None:
+            GRAPH_STEP_LAUNCHES.append(
+                {k: after[k] - before[k] for k in after})
 
     counted.counted = True
     ppo.StepGraph.step = counted
@@ -1614,7 +1622,7 @@ def reset_launches():
 
     fused.LAUNCHES = physics_step.LAUNCHES = physics_step_hf.LAUNCHES = 0
     fused.LAUNCHES_KRNG = multi_step.LAUNCHES = kernel_rng.LAUNCHES = 0
-    ppo.GRAPH_STEPS = ppo.EAGER_STEPS = 0
+    ppo.REPLAYED_STEPS = ppo.UNCAPTURED_STEPS = 0
     GRAPH_STEP_LAUNCHES.clear()
     count_graph_steps()
 
@@ -1635,20 +1643,21 @@ def read_fused_calls():
 
 
 def graph_held(host):
-    """The host-call counts `host` with the runs of `StepGraph.step` taken
-    out and each replay counted as the calls one step holds."""
+    """The host-call counts `host` with the runs of `StepGraph.step` that
+    made a graph taken out and each replay counted as the calls one step
+    holds."""
     from wheeledlab_torch.rl import ppo
 
-    if not ppo.GRAPH_STEPS:
-        return host
     held = GRAPH_STEP_LAUNCHES[:1]
-    if not held or any(n != held[0] for n in GRAPH_STEP_LAUNCHES):
+    if not held:
+        return host
+    if any(n != held[0] for n in GRAPH_STEP_LAUNCHES):
         raise AssertionError(
-            f"{ppo.GRAPH_STEPS} graph replays, steps launching "
+            f"{ppo.REPLAYED_STEPS} graph replays, steps launching "
             f"{GRAPH_STEP_LAUNCHES}: one graph a count, captured after "
             "reset_launches")
     return {k: v - sum(n[k] for n in GRAPH_STEP_LAUNCHES)
-            + ppo.GRAPH_STEPS * held[0][k] for k, v in host.items()}
+            + ppo.REPLAYED_STEPS * held[0][k] for k, v in host.items()}
 
 
 def check_launches(path, got, want):
@@ -1791,6 +1800,7 @@ ROLLOUT_GRAPH_CASES = (
     ("RSS_ELEV_CONFIG", 1024, "K3", {}))
 GRAPH_ITERS = 3
 GRAPH_BOUNDARY_LEAD = 128 + 14
+VIDEO_ENVS = 1024
 GRAPH_PROFILED = 2
 
 
@@ -1814,8 +1824,9 @@ def curriculum_change(env):
 
 def graph_learner(cfg, kernel, graphed):
     """The learner `train()` would build for `cfg` (K4: the in-kernel-RNG
-    route, read when the env is built), on the graphed route or held to
-    the eager loop."""
+    route, read when the env is built), its rollout step captured or held
+    to the same step run as it stands."""
+    from wheeledlab_torch.rl import ppo
     from wheeledlab_torch.rl.runner import setup
 
     if kernel == "K4":
@@ -1825,14 +1836,14 @@ def graph_learner(cfg, kernel, graphed):
     finally:
         os.environ.pop("WHEELEDLAB_KERNEL_RNG", None)
     if not graphed:
-        learner.graphs_rollout = lambda capture_traj: False
-    if learner.graphs_rollout(False) is not graphed:
-        raise AssertionError(f"the {'graphed' if graphed else 'eager'} "
-                             "route was not taken")
+        learner.captures_step = False
+    if ppo.StepGraph.captures(learner) is not graphed:
+        raise AssertionError(f"the step is {'not ' if graphed else ''}"
+                             "captured")
     return learner
 
 
-def graph_iterations(learner, state, iters):
+def graph_iterations(learner, state, iters, capture_traj=False):
     """`iters` train iterations; returns (state, metrics of each, host ms of
     each, closed by a synchronize)."""
     import torch
@@ -1840,7 +1851,7 @@ def graph_iterations(learner, state, iters):
     metrics, ms = [], []
     for _ in range(iters):
         t0 = time.perf_counter()
-        state, m = learner.train_iteration(state)
+        state, m = learner.train_iteration(state, capture_traj)
         torch.cuda.synchronize()
         ms.append(1000.0 * (time.perf_counter() - t0))
         metrics.append(m)
@@ -1872,7 +1883,7 @@ def differing(a, b, where=""):
 
 
 def graph_snapshot(learner, state, metrics):
-    """What the graphed and the eager runs must agree on: the learner
+    """What the captured and the uncaptured runs must agree on: the learner
     (policy, Adam, its generator), the env's generator, the state and every
     iteration's metrics."""
     return {"learner": learner.state_dict(),
@@ -1882,10 +1893,12 @@ def graph_snapshot(learner, state, metrics):
 
 
 def graph_case(card, config, envs, kernel, settings):
-    """GRAPH_ITERS iterations graphed against the eager loop from the same
-    seed and state; raises unless every number is bit-equal and the route's
-    kernel carried every env step (the graph's launches counted a replay
-    each)."""
+    """GRAPH_ITERS iterations with the rollout step captured against the
+    same step run as it stands, from the same seed and state; raises unless
+    every number is bit-equal, the route's kernel carried every env step
+    (the graph's launches counted a replay each) and the captured run
+    replayed every step but at most a first one whose obs lie otherwise
+    than the graph reads them."""
     import dataclasses
 
     from wheeledlab_torch.rl import ppo
@@ -1903,33 +1916,59 @@ def graph_case(card, config, envs, kernel, settings):
         state, metrics, ms = graph_iterations(learner, state, GRAPH_ITERS)
         steps = GRAPH_ITERS * cfg.agent.num_steps_per_env
         check_launches(f"rollout graph {config} {envs} {kernel} {settings} "
-                       f"{'graphed' if graphed else 'eager'}",
+                       f"{'captured' if graphed else 'uncaptured'}",
                        read_launches(), {**NO_LAUNCHES, kernel: steps})
-        routes = (ppo.GRAPH_STEPS, ppo.EAGER_STEPS)
-        if routes != ((steps, 0) if graphed else (0, steps)):
-            raise AssertionError(f"graphed, eager steps {routes}")
+        routes = (ppo.REPLAYED_STEPS, ppo.UNCAPTURED_STEPS)
+        if (sum(routes) != steps
+                or routes[1] > (1 if graphed else steps)
+                or (not graphed and routes[0])):
+            raise AssertionError(f"replayed, uncaptured steps {routes}")
         shares[graphed] = routes[0] / sum(routes)
         runs[graphed] = (graph_snapshot(learner, state, metrics), ms)
         del learner, state, metrics
     bad = differing(runs[True][0], runs[False][0])
-    print(json.dumps({"name": "rollout graph against the eager loop",
+    print(json.dumps({"name": "rollout step captured against uncaptured",
                       "config": config, "envs": envs, "kernel": kernel,
                       "settings": settings, "iterations": GRAPH_ITERS,
                       "not_bit_equal": bad,
                       "graphed_share_of_steps": shares[True],
-                      "eager_route_graphed_share": shares[False],
+                      "uncaptured_graphed_share": shares[False],
                       "graphed_iteration_ms": runs[True][1],
-                      "eager_iteration_ms": runs[False][1], "card": card}),
+                      "uncaptured_iteration_ms": runs[False][1],
+                      "card": card}),
           flush=True)
     if bad:
-        raise AssertionError(f"graphed and eager runs differ in {bad}")
+        raise AssertionError(f"captured and uncaptured runs differ in {bad}")
+
+
+def graph_video_case(card):
+    """One video iteration (`capture_traj`) of RSS_DRIFT_CONFIG at
+    VIDEO_ENVS envs with the step captured against the same step run as it
+    stands: the `traj/*` channels (read from the step's carried state after
+    each step) and every other number bit for bit."""
+    cfg = graph_config(DRIFT, VIDEO_ENVS, {})
+    runs = {}
+    for graphed in (True, False):
+        learner = graph_learner(cfg, "K1", graphed)
+        state, metrics, _ = graph_iterations(learner, learner.init_state(),
+                                             1, capture_traj=True)
+        if "traj/pos" not in metrics[0]:
+            raise AssertionError("the video iteration holds no traj/*")
+        runs[graphed] = graph_snapshot(learner, state, metrics)
+        del learner, state, metrics
+    bad = differing(runs[True], runs[False])
+    print(json.dumps({"name": "video iteration captured against uncaptured",
+                      "envs": VIDEO_ENVS, "not_bit_equal": bad,
+                      "card": card}), flush=True)
+    if bad:
+        raise AssertionError(f"the video iterations differ in {bad}")
 
 
 def graph_resume_case(card, logs):
-    """A checkpoint written after GRAPH_ITERS - 1 graphed iterations at
-    65,536 envs, resumed by a learner held to the eager loop for one
-    iteration, against the graphed learner's own next iteration: equal
-    bits. Then GRAPH_PROFILED graphed iterations under `torch.profiler`:
+    """A checkpoint written after GRAPH_ITERS - 1 captured iterations at
+    65,536 envs, resumed by a learner whose step runs as it stands for one
+    iteration, against the captured learner's own next iteration: equal
+    bits. Then GRAPH_PROFILED captured iterations under `torch.profiler`:
     the trace must hold a K1 launch a step."""
     import torch
 
@@ -1952,11 +1991,11 @@ def graph_resume_case(card, logs):
         resumed, restore_checkpoint(logs, 0, resumed), 1)
     bad = differing(graphed, graph_snapshot(resumed, r_state, r_metrics))
     del resumed, r_state, r_metrics
-    print(json.dumps({"name": "graphed checkpoint resumed eagerly",
+    print(json.dumps({"name": "captured checkpoint resumed uncaptured",
                       "envs": POD_ENVS, "not_bit_equal": bad, "card": card}),
           flush=True)
     if bad:
-        raise AssertionError(f"eager resume differs in {bad}")
+        raise AssertionError(f"uncaptured resume differs in {bad}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1973,12 +2012,14 @@ def graph_resume_case(card, logs):
 
 
 def rollout_graph_phase(device, logs, card):
-    """The graphed rollout (`rl/ppo.py::StepGraph`) against the eager loop
-    on the card (`ROLLOUT_GRAPH_CASES`), an eager resume of its checkpoint,
-    and its K1 launches in a profiler's trace."""
+    """The rollout's step captured (`rl/ppo.py::StepGraph`) against the
+    same step run as it stands on the card (`ROLLOUT_GRAPH_CASES`, a video
+    iteration), an uncaptured resume of its checkpoint, and its K1
+    launches in a profiler's trace."""
     phase("rollout_graph")
     for config, envs, kernel, settings in ROLLOUT_GRAPH_CASES:
         graph_case(card, config, envs, kernel, settings)
+    graph_video_case(card)
     graph_resume_case(card, os.path.join(logs, "rollout-graph"))
 
 

@@ -72,7 +72,10 @@ def record(learner, rec):
         return state, out
 
     def compute_gae(reward, value, done, last_value):
-        rec[-1]["gae_in"] = (reward, value, done, last_value)
+        # copies: the trajectory is the rollout step's own, overwritten by
+        # the next rollout
+        rec[-1]["gae_in"] = tuple(x.clone() for x in (reward, value, done,
+                                                      last_value))
         res = gae(reward, value, done, last_value)
         rec[-1]["norm_adv"] = res[2]
         return res

@@ -62,9 +62,9 @@ and how many draws each.
 
 | site | JAX draw | port draw | replay |
 |---|---|---|---|
-| action_noise | `rl/ppo.py:234` | `rl/ppo.py:PPO.act_and_step+10 <- rl/ppo.py:PPO.rollout+15` | output |
+| action_noise | `rl/ppo.py:234` | `rl/ppo.py:StepGraph.step+10 <- rl/ppo.py:StepGraph.replay+15 <- rl/ppo.py:PPO.run_steps+23 <- rl/ppo.py:PPO.rollout+7` | output |
 | epoch_perm | `rl/ppo.py:358` | `rl/ppo.py:PPO.update_epochs+16` | output |
-| rnn_action_noise | `rl/recurrent.py:242` | `rl/ppo.py:PPO.act_and_step+10 <- rl/recurrent.py:RecurrentPPO.rollout+16` | output |
+| rnn_action_noise | `rl/recurrent.py:242` | `rl/ppo.py:StepGraph.step+10 <- rl/ppo.py:StepGraph.replay+15 <- rl/ppo.py:PPO.run_steps+23 <- rl/recurrent.py:RecurrentPPO.rollout+7` | output |
 | rnn_env_perm | `rl/recurrent.py:328` | `rl/recurrent.py:RecurrentPPO.update_epochs+14` | output |
 | drift_step_uniforms | `tasks/drift/fused.py:618` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+26` | unit |
 | drift_step_normals | `tasks/drift/fused.py:619` | `tasks/drift/fused.py:make_fused_drift_step.fused_step+28` | output |
@@ -95,9 +95,9 @@ and how many draws each.
 | visual_aug_sigma | `tasks/visual/augment.py:54` | `tasks/visual/augment.py:augmentation_draws.u+1 <- tasks/visual/augment.py:augmentation_draws+11` | unit |
 | visual_obs_noise | `tasks/visual/task.py:244 <- tasks/visual/task.py:246` | `tasks/visual/task.py:make_visual_task.observe.<lambda>+0 <- tasks/visual/task.py:make_visual_task.observe+18` | unit |
 
-The recurrent rollout's action noise shares its innermost port frame with
-the MLP rollout's; the two rows tell them apart by the caller's frame
-(`PPO.rollout` or `RecurrentPPO.rollout`). `rnn_env_perm` is drawn once an
+The recurrent rollout's action noise shares its innermost three port
+frames with the MLP rollout's (the one rollout step); the two rows tell
+them apart by the fourth (`PPO.rollout` or `RecurrentPPO.rollout`). `rnn_env_perm` is drawn once an
 iteration and shared by its epochs, on both sides.
 
 A site may draw more than once a step: `command_*` at the timed resample

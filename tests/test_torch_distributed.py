@@ -182,7 +182,7 @@ class TestTwoRanks:
         import jax.numpy as jnp
         from wheeledlab_tpu.rl import ppo as jax_ppo
         from wheeledlab_torch.rl.ppo import (
-            accumulate_info, init_info_acc, make_learner,
+            info_increments, init_info_acc, make_learner,
         )
         from wheeledlab_torch.tasks import make_env
 
@@ -241,7 +241,9 @@ class TestTwoRanks:
                                                           b["steps"]):
                 info = {k: torch.cat([info_a[k], info_b[k]]) for k in info_a}
                 done = torch.cat([done_a, done_b])
-                acc = accumulate_info(acc or init_info_acc(info), info, done)
+                acc = acc or init_info_acc(info)
+                acc = {k: acc[k] + v for k, v in
+                       info_increments(acc, info, done).items()}
                 jacc = jax_ppo.accumulate_info(
                     jacc or {k: jnp.zeros(()) for k in acc},
                     {k: jnp.asarray(v.numpy()) for k, v in info.items()},

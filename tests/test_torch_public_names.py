@@ -70,6 +70,9 @@ JAX_ONLY = {
     "rollout fills a dict of [T, B] buffers (PPO.new_traj)",
     ("rl/recurrent.py", "RecurrentTransition"): "the JAX rollout's scan "
     "pytree; the port's fills a dict of buffers (PPO.new_traj)",
+    ("rl/ppo.py", "accumulate_info"): "the JAX rollout scan's fold of a "
+    "step's info into a dict; the port's one rollout step adds "
+    "`info_increments` to one stacked accumulator (StepGraph.step)",
     ("rl/ppo.py", "make_ppo"): "the JAX learner as jitted closures; the "
     "port's is the PPO class, built by make_learner",
     ("rl/recurrent.py", "make_ppo_recurrent"): "the JAX learner as jitted "

@@ -1,15 +1,18 @@
-"""The graphed rollout (`rl/ppo.py::StepGraph`, `PPO.graphed_rollout`):
-its step, run as it stands on the CPU, gives the eager loop's
-(`act_and_step`'s) trajectory, accumulators, EnvState, obs and both
-generators' states bit for bit over whole train iterations, a curriculum
-boundary crossed mid-rollout included, on drift's fused step and on the
-generic step (the visual and elevation tasks); the EnvState tensors it
-carries are those the step replaces; the route is taken only by `PPO` on
-a card, off the per-vehicle route and with no `traj/*` capture, and
-`GRAPH_STEPS` and `EAGER_STEPS` count which route stepped. On a card, the
-captured graph against the eager loop (skipped without one)."""
+"""The rollout's one step (`rl/ppo.py::StepGraph`, `PPO.run_steps`): run
+as it stands on the CPU, it gives a plain step loop's (`reference_rollout`,
+the reference written here) trajectory, accumulators, EnvState, obs and
+both generators' states bit for bit over whole train iterations, a
+curriculum boundary crossed mid-rollout included, on drift's fused step, on
+the generic step (the visual and elevation tasks) and for the recurrent
+learner; its video channels are the reference's; the EnvState tensors it
+carries are those the step replaces; it is captured only on a card, off the
+per-vehicle route and for a learner whose step may be (not the recurrent
+one), and `REPLAYED_STEPS` and `UNCAPTURED_STEPS` count how it stepped. On
+a card, the captured step against the same step uncaptured (skipped
+without one)."""
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -18,7 +21,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import wheeledlab_torch.rl  # noqa: F401  registers run configs
 from wheeledlab_torch.envs.env import EnvState
 from wheeledlab_torch.rl import ppo
-from wheeledlab_torch.rl.ppo import PPOCfg, make_learner
+from wheeledlab_torch.rl.networks import gaussian_log_prob
+from wheeledlab_torch.rl.ppo import (
+    PPOCfg, info_increments, init_info_acc, make_learner,
+)
+from wheeledlab_torch.rl.recurrent import RecurrentPPO
 from wheeledlab_torch.tasks import make_env
 
 torch.set_num_threads(1)
@@ -38,6 +45,7 @@ GENERIC = {
              "episode_length_s": 1.0},
     ELEVATION: {"episode_length_s": 0.6, "goal_resample_s": 0.3},
 }
+RECURRENT = {"policy_class": "ActorCriticRecurrent", "rnn_hidden_size": 8}
 # elevation's first curriculum change (vel_towards_goal's, after 50
 # episodes of 6 steps)
 ELEVATION_BOUNDARY = 294
@@ -75,8 +83,8 @@ def assert_same(a, b, where="value"):
 
 
 def cloned(x):
-    """A copy of `x`'s tensors (the graphed route's trajectory is the
-    graph's own, overwritten by the next rollout)."""
+    """A copy of `x`'s tensors (a rollout's trajectory is its step's own,
+    overwritten by the next rollout)."""
     if isinstance(x, torch.Tensor):
         return x.clone()
     if dataclasses.is_dataclass(x):
@@ -127,18 +135,62 @@ def run(learner, iterations, common_step=None):
     return rollouts, state, metrics
 
 
-def assert_runs_equal(graphed, eager):
-    (g_roll, g_state, g_metrics), g_learner = graphed
-    (e_roll, e_state, e_metrics), e_learner = eager
-    assert len(g_roll) == len(e_roll)
-    for i, (g, e) in enumerate(zip(g_roll, e_roll)):
-        for name, x, y in zip(("env_state", "obs", "traj", "acc"), g, e):
-            assert_same(x, y, f"rollout {i} {name}")
-    assert_same(g_state, e_state, "state")
-    assert_same(g_metrics, e_metrics, "metrics")
-    assert_same(g_learner.state_dict(), e_learner.state_dict(), "learner")
-    assert_same(g_learner.env.generator.get_state(),
-                e_learner.env.generator.get_state(), "env generator")
+def assert_runs_equal(ours, theirs):
+    (o_roll, o_state, o_metrics), o_learner = ours
+    (t_roll, t_state, t_metrics), t_learner = theirs
+    assert len(o_roll) == len(t_roll)
+    for i, (o, t) in enumerate(zip(o_roll, t_roll)):
+        assert len(o) == len(t)
+        for j, (x, y) in enumerate(zip(o, t)):
+            assert_same(x, y, f"rollout {i} output {j}")
+    assert_same(o_state, t_state, "state")
+    assert_same(o_metrics, t_metrics, "metrics")
+    assert_same(o_learner.state_dict(), t_learner.state_dict(), "learner")
+    assert_same(o_learner.env.generator.get_state(),
+                t_learner.env.generator.get_state(), "env generator")
+
+
+COLUMNS = ("obs", "action", "log_prob", "value", "reward", "done", "mean",
+           "std")
+
+
+@torch.no_grad()
+def reference_rollout(learner, state, capture_traj=False):
+    """The rollout as a plain step loop on the env's own states, the
+    reference the learner's step is held to: the policy (the recurrent
+    learner's LSTM step, its carry reset by the previous step's done), the
+    action's sample, `env.step`, the timeout bootstrap `reward + gamma * V
+    * time_out`, the stores and the info folding. Returns what
+    `learner.rollout` returns."""
+    env, cfg = learner.env, learner.cfg
+    recurrent = isinstance(learner, RecurrentPPO)
+    rows = {k: [] for k in COLUMNS + ("reset",) * recurrent}
+    env_state, obs, acc = state.env_state, state.obs, None
+    if recurrent:
+        hidden, reset = state.hidden, state.reset_prev
+    for _ in range(cfg.num_steps_per_env):
+        if recurrent:
+            hidden, mean, std, value = learner.model.step(hidden, obs, reset)
+            rows["reset"].append(reset)
+        else:
+            mean, std, value = learner.policy_apply(obs)
+        action = mean + std * torch.randn(mean.shape,
+                                          generator=learner.generator)
+        env_state, out = env.step(env_state, action)
+        reward = out.reward + cfg.gamma * value * out.time_out
+        for k, v in zip(COLUMNS, (obs, action,
+                                  gaussian_log_prob(mean, std, action),
+                                  value, reward, out.done, mean, std)):
+            rows[k].append(v)
+        acc = acc or init_info_acc(out.info)
+        acc = {k: acc[k] + v
+               for k, v in info_increments(acc, out.info, out.done).items()}
+        obs, reset = out.obs, out.done.to(torch.float32)
+    traj = {k: torch.stack(v).to(learner.obs_dtype if k == "obs"
+                                 else torch.float32) for k, v in rows.items()}
+    if recurrent:
+        return env_state, obs, hidden, reset, state.hidden, traj, acc
+    return env_state, obs, traj, acc
 
 
 # (task, envs, agent settings, starting common_step, in-kernel RNG)
@@ -158,32 +210,36 @@ CASES = {
     "elevation_16": (ELEVATION, 16, {}, None, False),
     "elevation_curriculum_boundary": (ELEVATION, 16, {},
                                       ELEVATION_BOUNDARY - 5, False),
+    "recurrent_16": ("MushrDriftRL-v0", 16, RECURRENT, None, False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_graph_step_uncaptured_equals_eager_loop(case, monkeypatch):
-    """Two train iterations with the graphed route's step run as it stands
-    (no capture on the CPU) against the eager loop: every rollout's traj,
-    accumulators, EnvState and obs, the final state, the metrics, the
-    learner (policy, Adam, its generator) and the env's generator, bit for
-    bit. The curriculum cases start `common_step` a few steps under a
-    change of the weights, so the weights buffer is refreshed mid-rollout
-    (and the case on the in-kernel-RNG route draws its rows from the
-    per-step seed on the CPU). The visual and elevation cases take the
-    generic step, whose envs reset within a rollout here."""
+def test_rollout_equals_reference_loop(case, monkeypatch):
+    """Two train iterations with the learner's rollout step (run as it
+    stands: no capture on the CPU) against the same learner with its
+    rollout the reference loop (`reference_rollout`): every rollout's
+    outputs, the final state, the metrics, the learner (policy, Adam, its
+    generator) and the env's generator, bit for bit. The curriculum cases
+    start `common_step` a few steps under a change of the weights, so the
+    weights buffer is refreshed mid-rollout (and the case on the
+    in-kernel-RNG route draws its rows from the per-step seed on the CPU).
+    The visual and elevation cases take the generic step, whose envs reset
+    within a rollout here; the recurrent case carries the LSTM state and
+    the `reset` column."""
     task, envs, agent, common_step, krng = CASES[case]
     if krng:
         monkeypatch.setenv("WHEELEDLAB_KERNEL_RNG", "1")
     runs = []
-    for graphed in (True, False):
+    for reference in (False, True):
         learner = learner_of(envs, task=task, **agent)
-        if graphed:
-            learner.graphs_rollout = lambda capture_traj: not capture_traj
-        steps = (ppo.GRAPH_STEPS, ppo.EAGER_STEPS)
+        if reference:
+            learner.rollout = functools.partial(reference_rollout, learner)
+        steps = (ppo.REPLAYED_STEPS, ppo.UNCAPTURED_STEPS)
         runs.append((run(learner, 2, common_step), learner))
-        moved = (ppo.GRAPH_STEPS - steps[0], ppo.EAGER_STEPS - steps[1])
-        assert moved == ((2 * T, 0) if graphed else (0, 2 * T))
+        moved = (ppo.REPLAYED_STEPS - steps[0],
+                 ppo.UNCAPTURED_STEPS - steps[1])
+        assert moved == ((0, 0) if reference else (0, 2 * T))
     assert_runs_equal(*runs)
     if common_step is not None:
         final = runs[0][0][1].env_state.reward_weights
@@ -191,32 +247,67 @@ def test_graph_step_uncaptured_equals_eager_loop(case, monkeypatch):
             float(t.weight) for t in learner.env.task.reward_terms)))
     graph = runs[0][1].step_graph
     assert graph is not None and graph.graph is None
+    assert runs[1][1].step_graph is None
 
 
-GRAPHED_ON_A_CARD = ("cpu", "elevation", "visual")
+CAPTURED_ON_A_CARD = ("cpu", "elevation", "visual", "capture_traj")
 
 
 @pytest.mark.parametrize("route", ["cpu", "elevation", "capture_traj",
                                    "recurrent", "visual", "per_vehicle"])
-def test_eager_routes(route, monkeypatch):
-    """On the CPU every learner takes the eager loop: `EAGER_STEPS`
-    advances by a step a step and `GRAPH_STEPS` stands. On a card (faked
-    for the question alone), the drift learner and the generic step's
-    (elevation, visual) would take the graph; a rollout that captures
-    `traj/*`, the recurrent learner and the per-vehicle route would not."""
+def test_captured_routes(route, monkeypatch):
+    """On the CPU every learner runs its step as it stands:
+    `UNCAPTURED_STEPS` advances by a step a step and `REPLAYED_STEPS`
+    stands. On a card (faked for the question alone), the drift learner's
+    step and the generic step's (elevation, visual) would be captured, a
+    rollout that captures `traj/*` too; the recurrent learner's and the
+    per-vehicle route's would not."""
     kw = {"elevation": {"task": ELEVATION}, "visual": {"task": VISUAL},
           "per_vehicle": {"use_kernels": "off"},
-          "recurrent": {"policy_class": "ActorCriticRecurrent",
-                        "rnn_hidden_size": 8}}.get(route, {})
+          "recurrent": RECURRENT}.get(route, {})
     learner = learner_of(16, **kw)
     capture = route == "capture_traj"
-    assert not learner.graphs_rollout(capture)
-    steps = (ppo.GRAPH_STEPS, ppo.EAGER_STEPS)
-    learner.rollout(learner.init_state(), capture)
-    assert (ppo.GRAPH_STEPS - steps[0], ppo.EAGER_STEPS - steps[1]) == (0, T)
-    assert learner.step_graph is None
+    assert not ppo.StepGraph.captures(learner)
+    steps = (ppo.REPLAYED_STEPS, ppo.UNCAPTURED_STEPS)
+    out = learner.rollout(learner.init_state(), capture)
+    assert (ppo.REPLAYED_STEPS - steps[0],
+            ppo.UNCAPTURED_STEPS - steps[1]) == (0, T)
+    assert learner.step_graph.graph is None
+    traj = out[-2]
+    assert capture is ("traj/pos" in traj)
+    if capture:
+        assert traj["traj/pos"].shape == (T, 8, 3)
     monkeypatch.setattr(learner.env, "device", torch.device("cuda"))
-    assert learner.graphs_rollout(capture) is (route in GRAPHED_ON_A_CARD)
+    assert ppo.StepGraph.captures(learner) is (route in CAPTURED_ON_A_CARD)
+
+
+def test_video_channels_equal_reference_loop():
+    """A rollout's `traj/*` channels (read from the step's carried state
+    after each step) equal `traj_captures` of each env state the reference
+    loop's steps return, bit for bit."""
+    runs = []
+    for reference in (False, True):
+        learner = learner_of(16)
+        state = learner.init_state()
+        if reference:
+            captured = []
+            step = learner.env.step
+
+            def spy(env_state, action):
+                new, out = step(env_state, action)
+                captured.append(ppo.traj_captures(new))
+                return new, out
+
+            learner.env.step = spy
+            _, _, traj, _ = reference_rollout(learner, state)
+            traj = {k: torch.stack([c[k] for c in captured])
+                    for k in captured[0]}
+        else:
+            _, _, traj, _ = learner.rollout(state, capture_traj=True)
+        runs.append({k: v for k, v in traj.items() if k.startswith("traj/")})
+    assert list(runs[0]) == ["traj/pos", "traj/yaw", "traj/quat",
+                             "traj/cmd"]
+    assert_same(*runs, "traj")
 
 
 # the EnvState tensors drift's fused step replaces
@@ -232,7 +323,6 @@ def test_carried_set_is_what_the_step_replaces(task):
     step, commands or none); the packed params it reads where they lie, and
     `serves` a state that hands in those same tensors."""
     learner = learner_of(16, task=task)
-    learner.graphs_rollout = lambda capture_traj: True
     state = learner.init_state()
     learner.rollout(state)
     g = learner.step_graph
@@ -255,7 +345,6 @@ def test_a_new_state_rebuilds_the_graph():
     command, its timer) are other ones gets a graph over those; a state
     carrying the same ones keeps the graph."""
     learner = learner_of(16)
-    learner.graphs_rollout = lambda capture_traj: True
     state = learner.init_state()
     env_state, obs, _, _ = learner.rollout(state)
     graph = learner.step_graph
@@ -279,41 +368,46 @@ def spy_on_steps(monkeypatch):
 
 
 def test_first_obs_read_where_it_lies(monkeypatch):
-    """The graph's first step, which lays its buffers out, reads a reset's
-    obs; a rollout whose obs lie otherwise than the graph's rows (a
-    reset's, contiguous, where drift's fused step returns rows) runs its
-    first step on them where they lie, as the eager loop's first step
-    reads them; the obs a graphed rollout hands on lie as the rows do, and
-    the next rollout replays every step."""
+    """The step's first step, which lays its buffers out, reads a reset's
+    obs where they lie; the obs a rollout hands on lie as the rows drift's
+    fused step returns, and the next rollout reads the buffer at every
+    step; a rollout whose obs lie otherwise than the rows (a reset's,
+    contiguous) runs its first step on them where they lie, as the
+    reference loop's first step reads them."""
     learner = learner_of(16)
-    learner.graphs_rollout = lambda capture_traj: True
     given = spy_on_steps(monkeypatch)
     state = learner.init_state()
     assert state.obs.is_contiguous()
     env_state, obs, _, _ = learner.rollout(state)
-    assert given[0] is state.obs and given[1] is state.obs
-    assert given[2:] == [None] * (T - 1)
+    assert given[0] is state.obs and given[1:] == [None] * (T - 1)
     assert learner.step_graph.obs.stride() == (1, 16)
     assert learner.step_graph.lays_out_like(obs)
     given.clear()
-    learner.rollout(ppo.TrainState(env_state=env_state, obs=obs,
-                                   iteration=1))
+    env_state, _, _, _ = learner.rollout(ppo.TrainState(
+        env_state=env_state, obs=obs, iteration=1))
     assert given == [None] * T
+    given.clear()
+    learner.rollout(ppo.TrainState(env_state=env_state, obs=state.obs,
+                                   iteration=2))
+    assert given[0] is state.obs and given[1:] == [None] * (T - 1)
 
 
 def test_generic_step_obs_buffer_is_contiguous(monkeypatch):
     """The generic step returns contiguous (B, obs_dim) obs, as a reset
-    does: the graph's obs buffer is laid out so, and a graphed rollout from
-    a reset replays every step, its first one included."""
+    does: the step's obs buffer is laid out so, and a rollout handed a
+    reset's obs reads the buffer at every step, its first one included."""
     learner = learner_of(16, task=VISUAL)
-    learner.graphs_rollout = lambda capture_traj: True
     given = spy_on_steps(monkeypatch)
     state = learner.init_state()
-    _, obs, _, _ = learner.rollout(state)
+    env_state, obs, _, _ = learner.rollout(state)
     g = learner.step_graph
     assert g.obs.shape == (16, learner.env.obs_dim) and g.obs.is_contiguous()
-    assert given[0] is state.obs and given[1:] == [None] * T
+    assert given[0] is state.obs and given[1:] == [None] * (T - 1)
     assert obs.is_contiguous()
+    given.clear()
+    learner.rollout(ppo.TrainState(env_state=env_state, obs=state.obs,
+                                   iteration=1))
+    assert given == [None] * T
 
 
 class HostData(TorchDispatchMode):
@@ -337,7 +431,6 @@ def test_step_copies_no_host_data(task):
     no tensor from host data but 0-dim scalars (an `x[..., 0] = 1.0`
     fill, which launches a fill)."""
     learner = learner_of(16, task=task)
-    learner.graphs_rollout = lambda capture_traj: True
     learner.rollout(learner.init_state())
     g = learner.step_graph
     g.t.zero_()
@@ -350,7 +443,6 @@ def test_graph_result_holds_no_buffer():
     """What a graphed rollout hands back shares no storage with the graph's
     buffers but the trajectory."""
     learner = learner_of(16)
-    learner.graphs_rollout = lambda capture_traj: True
     env_state, obs, traj, acc = learner.rollout(learner.init_state())
     g = learner.step_graph
     owned = {t.untyped_storage().data_ptr() for t in
@@ -364,21 +456,23 @@ def test_graph_result_holds_no_buffer():
 
 @pytest.mark.card
 @pytest.mark.parametrize("task", ["MushrDriftRL-v0", VISUAL])
-def test_captured_graph_equals_eager_loop_on_a_card(task):
-    """On a card: three iterations with the captured graph replayed against
-    the eager loop, drift at 1024 envs across its curriculum's first change
-    and the visual task (the generic step) at 512: equal parameters,
-    metrics, states and generator states, bit for bit."""
+def test_captured_equals_uncaptured_on_a_card(task):
+    """On a card: three iterations with the captured step replayed against
+    the same step run as it stands, drift at 1024 envs across its
+    curriculum's first change and the visual task (the generic step) at
+    512: equal parameters, metrics, states and generator states, bit for
+    bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the graph is captured there")
     drift = task == "MushrDriftRL-v0"
     runs = []
-    for graphed in (True, False):
+    for captured in (True, False):
         learner = learner_of(1024 if drift else 512, device="cuda", task=task)
-        if not graphed:
-            learner.graphs_rollout = lambda capture_traj: False
-        assert learner.graphs_rollout(False) is graphed
+        if not captured:
+            learner.captures_step = False
+        assert ppo.StepGraph.captures(learner) is captured
         runs.append((run(learner, 3, BOUNDARY - 20 if drift else None),
                      learner))
     assert runs[0][1].step_graph.graph is not None
+    assert runs[1][1].step_graph.graph is None
     assert_runs_equal(*runs)

@@ -27,7 +27,8 @@ ITERATION = ("ppo.rollout", "ppo.gae", "ppo.update", "ppo.metrics")
 # parent -> the spans opened directly inside it
 CHILDREN = {
     "ppo.iteration": ITERATION,
-    "ppo.rollout": ("ppo.act", "ppo.record", "env.step"),
+    "ppo.rollout": ("ppo.step_graph",),
+    "ppo.step_graph": ("ppo.act", "ppo.record", "env.step"),
     "ppo.update": ("ppo.shuffle", "ppo.minibatch"),
     "ppo.minibatch": ("ppo.forward", "ppo.backward", "ppo.optimizer"),
     "env.step": ("drift.draw", "drift.launch", "drift.outputs",
@@ -115,7 +116,8 @@ def test_on_under_a_profiler_opens_record_function(monkeypatch):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_one_iteration_calls_and_nesting(case):
-    """One iteration: `env.step`, `ppo.act` and the step's phases once a
+    """One iteration: `ppo.step_graph` (the rollout's step, run as it
+    stands on the CPU), `env.step`, `ppo.act` and the step's phases once a
     step, `ppo.record` twice a step, the minibatch and its parts once a
     minibatch, the rest once; each parent's host time holds its
     children's. On the CPU no call is timed on the card."""
@@ -125,7 +127,8 @@ def test_one_iteration_calls_and_nesting(case):
     learner.train_iteration(state)
     profiling.enable_spans(False)
     totals = profiling.drain()
-    steps = dict.fromkeys(("env.step", "ppo.act") + CASES[case][3], T)
+    steps = dict.fromkeys(("ppo.step_graph", "env.step", "ppo.act")
+                          + CASES[case][3], T)
     mb = dict.fromkeys(CHILDREN["ppo.minibatch"] + ("ppo.minibatch",),
                        EPOCHS * MINIBATCHES)
     once = dict.fromkeys(ITERATION + ("ppo.iteration", "ppo.shuffle"), 1)

@@ -105,13 +105,6 @@ def info_increments(acc: Dict[str, torch.Tensor],
     return inc
 
 
-def accumulate_info(acc: Dict[str, torch.Tensor],
-                    info: Dict[str, torch.Tensor],
-                    done: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One rollout step of metric folding (`info_increments`)."""
-    return {k: acc[k] + v for k, v in info_increments(acc, info, done).items()}
-
-
 def finalize_info_acc(acc: Dict[str, torch.Tensor], num_steps: int,
                       n_done: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Accumulators -> iteration metrics: rollout means of rew/* and
@@ -198,13 +191,13 @@ class TrainState:
     iteration: int
 
 
-# Rollout steps taken by `StepGraph` (a replay each on a card, but a first
-# step whose obs lie otherwise than the graph reads them, which its step
-# runs uncaptured) and by the eager loop (`PPO.act_and_step`), counted like
-# the kernels' launches: the first over their sum is the graphed share of
-# rollout steps.
-GRAPH_STEPS = 0
-EAGER_STEPS = 0
+# Rollout steps replayed from a `StepGraph`'s CUDA graph and steps run as
+# they stand (uncaptured: off a card, on the per-vehicle route, by the
+# recurrent learner, and a first step whose obs lie otherwise than the
+# graph reads them), counted like the kernels' launches: the first over
+# their sum is the graphed share of rollout steps.
+REPLAYED_STEPS = 0
+UNCAPTURED_STEPS = 0
 
 # the EnvState fields a step may replace, of which `StepGraph` carries
 # those its first step replaced (the curriculum weights and the step
@@ -213,31 +206,44 @@ STEP_FIELDS = tuple(f.name for f in dataclasses.fields(EnvState)
                     if f.name not in ("common_step", "reward_weights"))
 
 
-class StepGraph:
-    """A `PPO` rollout step as one CUDA graph, replayed once a step: the
-    policy's forward, the action's sample and log-prob, the env's step (the
-    task's fused step, or the generic step with its physics kernel and
-    camera), the timeout bootstrap, the 8 stores into the trajectory at a
-    device step index, and the info folding. It works on buffers that live
-    as long as it does: the obs (laid out as the env's step returns them:
-    drift's fused step's (obs_dim, B) rows seen transposed, the generic
-    step's contiguous (B, obs_dim), so the policy reads the layout the
-    eager loop's steps read), the EnvState tensors the step replaces
-    (`carried`), the (n_terms,) curriculum weights, the [T, B, ...]
-    trajectory and the accumulators. The step copies its outputs back into
-    its inputs, so one graph serves every step. The EnvState tensors the
-    step leaves in place (packed params, and drift's command and its timer)
-    are read where they are: `serves` checks that a rollout hands in those
-    same tensors.
+def tree_map(fn, *xs):
+    """`fn` of tensors, or field by field of a dataclass of tensors (the
+    per-vehicle route's `VehicleState` carry)."""
+    if dataclasses.is_dataclass(xs[0]):
+        return type(xs[0])(**{f.name: fn(*(getattr(x, f.name) for x in xs))
+                              for f in dataclasses.fields(xs[0])})
+    return fn(*xs)
 
-    The first step, run when the object is made on the incoming state and
-    obs (which a step only reads), lays the buffers out from what it
-    returns (`lay_out`). On a card a warm-up step on the buffers follows,
-    on the capture stream, then the capture. Both generators are put back
+
+class StepGraph:
+    """The rollout step of `PPO` and its subclasses, the only one: the
+    policy's forward (`PPO.act`), the action's sample and log-prob, the
+    env's step (the task's fused step, or the generic step with its physics
+    kernel and camera), the timeout bootstrap, the 8 stores into the
+    trajectory at a device step index, and the info folding. It works on
+    buffers that live as long as it does: the obs (laid out as the env's
+    step returns them: drift's fused step's (obs_dim, B) rows seen
+    transposed, the generic step's contiguous (B, obs_dim)), the EnvState
+    tensors the step replaces (`carried`), the (n_terms,) curriculum
+    weights, the [T, B, ...] trajectory and the accumulators. The step
+    copies its outputs back into its inputs, so one body serves every step.
+    The EnvState tensors the step leaves in place (packed params, and
+    drift's command and its timer) are read where they are: `serves` checks
+    that a rollout hands in those same tensors. `memory` is the learner's
+    own carry across steps (the recurrent learner's LSTM state; None for
+    `PPO`), which `PPO.act` reads and replaces.
+
+    Where `captures` says so (a card, the packed carry, a learner whose
+    step may be captured), the step is one CUDA graph, replayed once a
+    step. The first step, run when the object is made on the incoming state
+    and obs (which a step only reads), lays the buffers out from what it
+    returns (`lay_out`); a warm-up step on the buffers follows, on the
+    capture stream, then the capture. Both generators are put back
     afterwards (and registered with the graph), so making the graph
-    consumes no draw, a replay draws what the eager step draws, and after a
-    rollout the generators stand where the eager loop leaves them. On the
-    CPU `replay` runs the step as it stands."""
+    consumes no draw, a replay draws what the step run as it stands draws,
+    and after a rollout the generators stand where the uncaptured step
+    leaves them. Elsewhere `replay` runs the step as it stands, and the
+    rollout's first step lays the buffers out."""
 
     def __init__(self, learner: "PPO", state: TrainState):
         self.learner = learner
@@ -252,30 +258,47 @@ class StepGraph:
         self.acc_names: Optional[Tuple[str, ...]] = None
         self.acc = torch.zeros((0,), device=dev)
         self.weights_from: Optional[torch.Tensor] = None
+        self.memory = None
         self.graph = None
+        self.captured = self.captures(learner)
+        if not self.captured:
+            return
         gens = (learner.generator, env.generator)
         saved = [g.get_state() for g in gens]
         with span("ppo.graph_capture"):
             self.step(state.obs)
-            if dev.type == "cuda":
-                self.capture(state, gens)
+            self.capture(state, gens)
         for g, s in zip(gens, saved):
             g.set_state(s)
+
+    @staticmethod
+    def captures(learner: "PPO") -> bool:
+        """Whether `learner`'s rollout step is captured as one CUDA graph:
+        on a card, with the packed carry (not the per-vehicle route), where
+        the learner's step may be (`PPO.captures_step`)."""
+        env = learner.env
+        return (learner.captures_step and env.device.type == "cuda"
+                and not env.per_vehicle)
 
     def lay_out(self, new: EnvState, obs: torch.Tensor):
         """At the first step: carry the EnvState tensors the step replaced
         in buffers of their own, and hold the obs in a buffer of the step's
-        obs' size and strides."""
-        self.carried = tuple(k for k in STEP_FIELDS
-                             if getattr(new, k) is not getattr(self.state, k))
+        obs' size and strides. A field the step sets to None (drift's fused
+        step drops the per-vehicle params of a state converted from JAX's,
+        which holds both kinds) is read where it lies, as a field the step
+        leaves in place."""
+        self.carried = tuple(
+            k for k in STEP_FIELDS if getattr(new, k) is not None
+            and getattr(new, k) is not getattr(self.state, k))
         self.state = dataclasses.replace(self.state, **{
-            k: torch.empty_like(getattr(self.state, k)) for k in self.carried})
+            k: tree_map(torch.empty_like, getattr(self.state, k))
+            for k in self.carried})
         self.obs = torch.empty_strided(obs.size(), obs.stride(),
                                        dtype=obs.dtype, device=obs.device)
 
     def serves(self, env_state: EnvState) -> bool:
-        """Whether the graph reads this state's tensors that the step
-        leaves in place."""
+        """Whether the step reads this state's tensors that it leaves in
+        place."""
         return all(getattr(env_state, k) is getattr(self.state, k)
                    for k in STEP_FIELDS if k not in self.carried)
 
@@ -299,15 +322,24 @@ class StepGraph:
             self.step()
         self.graph = graph
 
-    def load(self, state: TrainState):
-        """Copy a rollout's incoming state in; zero the step index and the
+    def load(self, state: TrainState, memory=None):
+        """Copy a rollout's incoming state in (once the buffers are laid
+        out) and take the learner's `memory`; zero the step index and the
         accumulators."""
-        self.obs.copy_(state.obs)
+        if self.obs is not None:
+            self.obs.copy_(state.obs)
         for k in self.carried:
-            getattr(self.state, k).copy_(getattr(state.env_state, k))
+            tree_map(torch.Tensor.copy_, getattr(self.state, k),
+                     getattr(state.env_state, k))
+        self.memory = memory
         self.t.zero_()
         self.acc.zero_()
         self.weights_from = None
+
+    def store(self, name: str, value: torch.Tensor):
+        """`value` as the step's row of the trajectory's column `name`."""
+        buf = self.traj[name]
+        buf.index_copy_(0, self.t, value.to(buf.dtype)[None])
 
     def step(self, obs: Optional[torch.Tensor] = None):
         """One rollout step on the buffers: what the graph holds. Given
@@ -317,20 +349,20 @@ class StepGraph:
         if obs is None:
             obs = self.obs
         with span("ppo.act"):
-            mean, std, value = learner.policy_apply(obs)
+            mean, std, value = learner.act(self, obs)
         with span("ppo.record"):
             action = mean + std * torch.randn(
                 mean.shape, generator=learner.generator, device=obs.device)
             log_prob = gaussian_log_prob(mean, std, action)
         new, out = learner.env.step(self.state, action)
         with span("ppo.record"):
+            # the timeout bootstrap (rsl_rl process_env_step)
             reward = out.reward + learner.cfg.gamma * value * out.time_out
             for k, v in (("obs", obs), ("action", action),
                          ("log_prob", log_prob), ("value", value),
                          ("reward", reward), ("done", out.done),
                          ("mean", mean), ("std", std)):
-                buf = self.traj[k]
-                buf.index_copy_(0, self.t, v.to(buf.dtype)[None])
+                self.store(k, v)
             if self.acc_names is None:
                 self.acc_names = tuple(init_info_acc(out.info))
                 self.acc = torch.zeros((len(self.acc_names),),
@@ -342,39 +374,46 @@ class StepGraph:
                 self.lay_out(new, out.obs)
             self.obs.copy_(out.obs)
             for k in self.carried:
-                getattr(self.state, k).copy_(getattr(new, k))
+                tree_map(torch.Tensor.copy_, getattr(self.state, k),
+                         getattr(new, k))
             self.t.add_(1)
 
     def lays_out_like(self, obs: torch.Tensor) -> bool:
-        """Whether `obs` lies as the policy's input does in the graph."""
-        return obs.stride() == self.obs.stride()
+        """Whether `obs` lies as the policy's input does in the buffers
+        (False before the first step has laid them out)."""
+        return self.obs is not None and obs.stride() == self.obs.stride()
 
-    def replay(self, weights: torch.Tensor,
+    def replay(self, common_step: int, weights: torch.Tensor,
                obs: Optional[torch.Tensor] = None):
-        """One step with the curriculum `weights`, copied in when they are
-        another tensor than the last step's (the env's cached tensors, so
-        identity is the test and nothing is read back). Given `obs` (laid
-        out otherwise than the graph reads), the step runs uncaptured."""
-        global GRAPH_STEPS
+        """One step at the host's step counter `common_step` (which only a
+        step run as it stands reads) with the curriculum `weights`, copied
+        in when they are another tensor than the last step's (the env's
+        cached tensors, so identity is the test and nothing is read back):
+        the graph's replay, or the step as it stands when uncaptured or
+        given `obs` (laid out otherwise than the buffers)."""
+        global REPLAYED_STEPS, UNCAPTURED_STEPS
+        self.state.common_step = common_step
         if weights is not self.weights_from:
             self.state.reward_weights.copy_(weights)
             self.weights_from = weights
         with span("ppo.step_graph"):
             if self.graph is None or obs is not None:
                 self.step(obs)
+                UNCAPTURED_STEPS += 1
             else:
                 self.graph.replay()
-        GRAPH_STEPS += 1
+                REPLAYED_STEPS += 1
 
     def result(self, env_state: EnvState, common_step: int,
                weights: torch.Tensor):
         """(env_state, obs, traj, acc) as `PPO.rollout` returns them, from
         copies of the buffers, so that no caller holds a tensor the next
-        rollout overwrites; the trajectory is the graph's own (every reader
+        rollout overwrites; the trajectory is the step's own (every reader
         of it is done within the iteration)."""
         new = dataclasses.replace(
             env_state, common_step=common_step, reward_weights=weights,
-            **{k: getattr(self.state, k).clone() for k in self.carried})
+            **{k: tree_map(torch.clone, getattr(self.state, k))
+               for k in self.carried})
         acc = dict(zip(self.acc_names, self.acc.clone().unbind()))
         return new, self.obs.clone(), dict(self.traj), acc
 
@@ -384,6 +423,9 @@ class PPO:
     (action noise and the epoch permutation)."""
 
     state_cls = TrainState
+    # whether the rollout's step may be captured as one CUDA graph
+    # (`StepGraph.captures`); the recurrent learner's may not
+    captures_step = True
 
     def __init__(self, env: WheeledEnv, cfg: PPOCfg, seed: int = 0,
                  world: Optional[World] = None,
@@ -442,56 +484,24 @@ class PPO:
 
     # ------------------------------------------------------------- rollout
 
-    def new_traj(self, *extra: str) -> Dict[str, torch.Tensor]:
+    def new_traj(self) -> Dict[str, torch.Tensor]:
         """Empty time-major [T, B, ...] rollout buffers: the transition's
-        columns, plus a [T, B] float column for each name in `extra`."""
+        columns."""
         cfg, env = self.cfg, self.env
         shape = (cfg.num_steps_per_env, env.num_envs)
         buf = lambda *s, dtype=torch.float32: torch.empty(
             shape + s, dtype=dtype, device=env.device)
         a = env.action_dim
-        traj = {"obs": buf(env.obs_dim, dtype=self.obs_dtype),
+        return {"obs": buf(env.obs_dim, dtype=self.obs_dtype),
                 "action": buf(a), "log_prob": buf(), "value": buf(),
                 "reward": buf(), "done": buf(), "mean": buf(a),
                 "std": buf(a)}
-        traj.update({k: buf() for k in extra})
-        return traj
 
-    def act_and_step(self, traj, t, env_state, obs, mean, std, value, acc,
-                     captures=None):
-        """Sample the action from the policy's (mean, std), step the env
-        and store transition t in `traj` (with the timeout bootstrap
-        `reward += gamma * V * time_out`, rsl_rl process_env_step); fold
-        the step's info into `acc` (None before the first step) and, when
-        `captures` is a list, append the step's `traj_captures`. Returns
-        (env_state, step output, acc). The span `ppo.record` covers all
-        but the env step: two calls a step."""
-        with span("ppo.record"):
-            action = mean + std * torch.randn(
-                mean.shape, generator=self.generator, device=self.env.device)
-            log_prob = gaussian_log_prob(mean, std, action)
-        env_state, out = self.env.step(env_state, action)
-        with span("ppo.record"):
-            reward = out.reward + self.cfg.gamma * value * out.time_out
-            for k, v in (("obs", obs), ("action", action),
-                         ("log_prob", log_prob), ("value", value),
-                         ("reward", reward), ("done", out.done),
-                         ("mean", mean), ("std", std)):
-                traj[k][t] = v
-            if acc is None:
-                acc = init_info_acc(out.info)
-            acc = accumulate_info(acc, out.info, out.done)
-            if captures is not None:
-                captures.append(traj_captures(env_state))
-        global EAGER_STEPS
-        EAGER_STEPS += 1
-        return env_state, out, acc
-
-    @staticmethod
-    def stack_captures(traj, captures):
-        """The `traj/*` channels of a captured rollout, [T, 8, ...]."""
-        for k in (captures[0] if captures else ()):
-            traj[k] = torch.stack([c[k] for c in captures])
+    def act(self, g: StepGraph, obs: torch.Tensor):
+        """The policy's (mean, std, value) on a rollout step's `obs`; the
+        step `g` holds the learner's carry across steps (`g.memory`), which
+        `PPO` has none of."""
+        return self.policy_apply(obs)
 
     @spanned("ppo.rollout")
     @torch.no_grad()
@@ -499,52 +509,43 @@ class PPO:
         """Returns (env_state, obs, traj dict of time-major [T, B, ...]
         tensors, info accumulators). With `capture_traj` the dict also holds
         the `traj/*` channels of `traj_captures`, [T, 8, ...], for a
-        video. Replays the step graph where `graphs_rollout` says so."""
-        if self.graphs_rollout(capture_traj):
-            return self.graphed_rollout(state)
-        traj = self.new_traj()
-        env_state, obs, acc = state.env_state, state.obs, None
-        captures = [] if capture_traj else None
-        for t in range(self.cfg.num_steps_per_env):
-            with span("ppo.act"):
-                mean, std, value = self.policy_apply(obs)
-            env_state, out, acc = self.act_and_step(
-                traj, t, env_state, obs, mean, std, value, acc, captures)
-            obs = out.obs
-        self.stack_captures(traj, captures)
-        return env_state, obs, traj, acc
+        video."""
+        return self.run_steps(state, capture_traj)[0]
 
-    def graphs_rollout(self, capture_traj: bool) -> bool:
-        """Whether `rollout` replays a `StepGraph`: `PPO` itself (a
-        subclass keeps its own rollout), on a card, on an env of the packed
-        carry (not the per-vehicle route), with no `traj/*` capture."""
-        env = self.env
-        return (type(self) is PPO and env.device.type == "cuda"
-                and not capture_traj and not env.per_vehicle)
-
-    def graphed_rollout(self, state: TrainState):
-        """`rollout` as replays of the learner's `StepGraph` (made at the
-        first call, and again for a state whose tensors that the step leaves
-        in place are other ones). The host keeps the step counter and the
-        curriculum weights as the eager loop does."""
+    def run_steps(self, state: TrainState, capture_traj: bool,
+                  memory=None):
+        """The rollout's `num_steps_per_env` steps from `state`, each a
+        `replay` of the learner's `StepGraph` (made at the first call, and
+        again for a state whose tensors that the step leaves in place are
+        other ones), with the learner's `memory` carried across them. The
+        host keeps the step counter and the curriculum weights. Returns
+        (`StepGraph.result`, the memory after the last step)."""
         g = self.step_graph
         if g is None or not g.serves(state.env_state):
             g = self.step_graph = StepGraph(self, state)
-        g.load(state)
+        g.load(state, memory)
         env = self.env
         common_step = state.env_state.common_step
         weights = state.env_state.reward_weights
         # a float32 product's bits follow its input's layout (at 1024 envs
-        # on an H100): obs that lie otherwise than the graph's obs buffer (a
+        # on an H100): obs that lie otherwise than the step's obs buffer (a
         # reset's rows where the step returns them transposed, a
-        # checkpoint's) are read where they lie, as the eager loop's first
-        # step reads them
+        # checkpoint's) are read where they lie, and the first step of a
+        # step not yet laid out reads them to lay it out
         first = None if g.lays_out_like(state.obs) else state.obs
+        captures = []
         for t in range(self.cfg.num_steps_per_env):
-            g.replay(weights, first if t == 0 else None)
+            g.replay(common_step, weights, first if t == 0 else None)
             common_step += 1
             weights = env._curriculum_weights(weights, common_step)
-        return g.result(state.env_state, common_step, weights)
+            if capture_traj:
+                captures.append({k: v.clone() for k, v in
+                                 traj_captures(g.state).items()})
+        env_state, obs, traj, acc = g.result(state.env_state, common_step,
+                                             weights)
+        for k in (captures[0] if captures else ()):
+            traj[k] = torch.stack([c[k] for c in captures])
+        return (env_state, obs, traj, acc), g.memory
 
     # ----------------------------------------------------------------- GAE
 

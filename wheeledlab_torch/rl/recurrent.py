@@ -4,8 +4,8 @@ critic MLPs, the hidden state reset on episode done), selected by
 `PPOCfg.policy_class = "ActorCriticRecurrent"`.
 
 - Rollout: the LSTM carries live in the train state and run through the
-  rollout; the carry entering a step is zeroed where the previous step
-  ended an episode.
+  rollout, on `PPO`'s step (`act`); the carry entering a step is zeroed
+  where the previous step ended an episode.
 - Update: minibatches split the env axis (the log-prob recomputation needs
   the hidden chain). Each minibatch reruns both chains over the whole
   rollout window from the window-start hidden, resetting where `done`
@@ -26,7 +26,7 @@ from torch import nn
 
 from ..utils.profiling import span, spanned
 from .networks import _mlp, init_linears_, lecun_normal_, sigmoid
-from .ppo import PPO, TrainState
+from .ppo import PPO, StepGraph, TrainState
 
 # {"actor": [(c, h) per layer], "critic": [...]}: the JAX hidden tree
 Hidden = Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]
@@ -227,6 +227,8 @@ class RecurrentPPO(PPO):
     state_cls = RecurrentTrainState
     obs_dtype = torch.float32
     fused = False
+    # its step runs as it stands (capturing the LSTM's: ROADMAP item 16)
+    captures_step = False
 
     def build_model(self, generator):
         cfg, env = self.cfg, self.env
@@ -245,6 +247,25 @@ class RecurrentPPO(PPO):
 
     # ------------------------------------------------------------- rollout
 
+    def new_traj(self) -> Dict[str, torch.Tensor]:
+        """`PPO.new_traj` with the `reset` column: the flags each step's
+        carry was reset by."""
+        traj = super().new_traj()
+        traj["reset"] = torch.empty_like(traj["done"])
+        return traj
+
+    def act(self, g: StepGraph, obs: torch.Tensor):
+        """The LSTM's step on `obs` from the carry `g.memory` holds: the
+        hidden state, the flags it is reset by (the previous step's done)
+        and the step's index. Stores the flags as the step's `reset`. The
+        next step's flags are this step's row of the trajectory's `done`,
+        which the step stores before the next one reads it."""
+        hidden, reset_prev, t = g.memory
+        hidden, mean, std, value = self.model.step(hidden, obs, reset_prev)
+        g.store("reset", reset_prev)
+        g.memory = hidden, g.traj["done"][t], t + 1
+        return mean, std, value
+
     @spanned("ppo.rollout")
     @torch.no_grad()
     def rollout(self, state: RecurrentTrainState, capture_traj: bool = False):
@@ -252,20 +273,10 @@ class RecurrentPPO(PPO):
         done; the traj also holds `reset` (the flag each step's carry was
         reset by). Returns (env_state, obs, hidden, reset_prev, h0, traj,
         acc), h0 the window-start hidden."""
-        traj = self.new_traj("reset")
-        env_state, obs, acc = state.env_state, state.obs, None
-        hidden, reset_prev = state.hidden, state.reset_prev
-        captures = [] if capture_traj else None
-        for t in range(self.cfg.num_steps_per_env):
-            with span("ppo.act"):
-                hidden, mean, std, value = self.model.step(hidden, obs,
-                                                           reset_prev)
-            traj["reset"][t] = reset_prev
-            env_state, out, acc = self.act_and_step(
-                traj, t, env_state, obs, mean, std, value, acc, captures)
-            obs, reset_prev = out.obs, out.done.to(torch.float32)
-        self.stack_captures(traj, captures)
-        return env_state, obs, hidden, reset_prev, state.hidden, traj, acc
+        (env_state, obs, traj, acc), (hidden, done, _) = self.run_steps(
+            state, capture_traj, (state.hidden, state.reset_prev, 0))
+        return (env_state, obs, hidden, done.clone(), state.hidden, traj,
+                acc)
 
     # -------------------------------------------------------------- update
 
